@@ -6,20 +6,32 @@
 1. Prints the card and its power limit (nvidia-smi).
 2. Builds the hand-written kernels (one nvcc per source, in parallel) and
    holds each one against its plain PyTorch twin on the card, at the shape
-   the depth-16 path gives it, including the edge values 0, 1, p − 1, the
-   identity, P + P and P + (−P); equality is exact.  Times kernel and twin
-   with CUDA events.
+   its path gives it, including the edge values 0, 1, p − 1, the identity,
+   P + P and P + (−P); equality is exact.  K1–K4 at the depth-16 shapes,
+   K5 on the last stage of the 2^20 NTT, K6 at 2^16 hashes, K7 on the first
+   level of the 2^20 fused NTT.  Times kernel and twin (profiler device
+   time, CUDA events) and computes each kernel's bound from its inputs.
 3. Drives the depth-16 pool round trip through the entry points a user
    calls: PrivacyPool(depth=16) with a real setup of the 4431-constraint
    withdraw circuit, a deposit of 4096 commitments, the root against the
    host oracle, prove_withdraw, withdraw (pairing verify), the voucher,
    redeem, and the rejection of a second redeem and of a tampered public
    input.  Every kernel's launch count is zeroed just before and read just
-   after; each must be > 0.
+   after; K1–K5 must each be > 0.
 4. Proves the depth-2 withdraw statement below with fixed seeds and holds
    the proof's digest against DEPTH2_DIGEST, which tests/test_torch_pool.py
    computes from the JAX package and asserts.
-5. Prints the `kernels` JSON line, then the result line.
+5. The NTT at 2^20 (NttDomain(20), seeded input): the K5 stage ladder and
+   the fused K7 path give equal transforms, the inverse of each returns the
+   input, both equal the host oracle at 2^10, and the 2^12 transform of a
+   seeded input matches NTT_DIGEST; launch counts zeroed before, K5 and K7
+   must be > 0.
+6. The dense MiMC tree over 2^20 seeded leaves: build_levels (one K6 launch
+   per level), every level against the plain twins applied to the level
+   below (one twin call over all nodes, so the root is the twins' root), 1024
+   authentication paths accepted and a tampered leaf rejected, and the root
+   over 2^10 seeded leaves against MIMC_DIGEST; K6 must be > 0.
+7. Prints the `kernels` JSON line, then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device, when the
 package is missing, or when any check fails.
@@ -29,6 +41,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import random
 import subprocess
 import sys
 import time
@@ -53,6 +66,27 @@ def depth2_deposits(commitment_of):
     return coms, [0xD2_0000 + i for i in range(3)], [0, DEPTH2_NOTE["amount"], 0]
 
 
+# The NTT and dense-MiMC references (shared with tests/test_torch_ntt_kernels.py,
+# which computes both digests from the JAX package and asserts them)
+NTT_DIGEST_LOGN = 12
+NTT_DIGEST_SEED = 0x4E7712
+NTT_DIGEST = "178bdf8ae60e0342345dee85be08858ea4a9d8124d1bec73d912bc371a924651"
+MIMC_DIGEST_LEAVES = 1 << 10
+MIMC_DIGEST_SEED = 0x313C
+MIMC_DIGEST = "9ec25380566ca9420949bbc40247541422b1d90e5ba88bee173105de07af4a77"
+
+
+def seeded_ints(seed: int, n: int, p: int) -> list[int]:
+    """n field elements (canonical ints) drawn from a seeded host generator."""
+    rng = random.Random(seed)
+    return [rng.randrange(p) for _ in range(n)]
+
+
+def values_digest(values) -> str:
+    """SHA-256 over canonical field values, 32 bytes big-endian each."""
+    return hashlib.sha256(b"".join(int(v).to_bytes(32, "big") for v in values)).hexdigest()
+
+
 def proof_digest(proof) -> str:
     """SHA-256 over the proof's affine coordinates, 32 bytes big-endian each:
     A.x, A.y, B.x0, B.x1, B.y0, B.y1, C.x, C.y."""
@@ -69,31 +103,53 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12     # 32-bit arithmetic outside the tensor cores
 MUL_OPS = 128 * 2 * 2       # 128 32×32→64 products = 256 multiply-adds = 512 ops
 ADD_OPS = 3 * 8             # add/sub with carry, subtract p, select: 8 words each
+ROW = 64                    # bytes of one int32[16] field element
+BFLY_OPS = MUL_OPS + 2 * ADD_OPS
+MIMC_OPS = 728 * MUL_OPS + 368 * ADD_OPS
 
 KERNELS = {
-    # name: (source, replaced TPU kernel, bytes per item, operations per item)
+    # name: (source, replaced TPU kernel)
     "mont_mul": ("owshen_tpu_torch/kernels/csrc/field_ops.cu",
-                 "owshen_tpu/pallas/field_kernels.py:504", 3 * 64, MUL_OPS + ADD_OPS),
+                 "owshen_tpu/pallas/field_kernels.py:504"),
     "mod_add": ("owshen_tpu_torch/kernels/csrc/field_ops.cu",
-                "owshen_tpu/pallas/field_kernels.py:315", 3 * 64, ADD_OPS),
+                "owshen_tpu/pallas/field_kernels.py:315"),
     "mod_sub": ("owshen_tpu_torch/kernels/csrc/field_ops.cu",
-                "owshen_tpu/pallas/field_kernels.py:149", 3 * 64, ADD_OPS),
+                "owshen_tpu/pallas/field_kernels.py:149"),
     "g1_add": ("owshen_tpu_torch/kernels/csrc/g1.cu",
-               "owshen_tpu/pallas/field_kernels.py:641", 9 * 64,
-               12 * MUL_OPS + 27 * ADD_OPS),
+               "owshen_tpu/pallas/field_kernels.py:641"),
     "g1_double": ("owshen_tpu_torch/kernels/csrc/g1.cu",
-                  "owshen_tpu/pallas/field_kernels.py:655", 6 * 64,
-                  8 * MUL_OPS + 20 * ADD_OPS),
+                  "owshen_tpu/pallas/field_kernels.py:655"),
     "poseidon_hash2": ("owshen_tpu_torch/kernels/csrc/poseidon.cu",
-                       "owshen_tpu/pallas/field_kernels.py:388", 3 * 64,
-                       828 * MUL_OPS + 585 * ADD_OPS),
+                       "owshen_tpu/pallas/field_kernels.py:388"),
+    "ntt_butterfly": ("owshen_tpu_torch/kernels/csrc/ntt.cu",
+                      "owshen_tpu/pallas/ntt_kernels.py:182"),
+    "mimc_hash2": ("owshen_tpu_torch/kernels/csrc/mimc.cu",
+                   "owshen_tpu/pallas/field_kernels.py:468"),
+    "ntt_cols": ("owshen_tpu_torch/kernels/csrc/ntt.cu",
+                 "owshen_tpu/pallas/ntt_kernels.py:158"),
 }
-
+# (bytes, operations) per item of the elementwise kernels: each input row
+# read once, each output row written once
+PER_ITEM = {
+    "mont_mul": (3 * ROW, MUL_OPS + ADD_OPS),
+    "mod_add": (3 * ROW, ADD_OPS),
+    "mod_sub": (3 * ROW, ADD_OPS),
+    "g1_add": (9 * ROW, 12 * MUL_OPS + 27 * ADD_OPS),
+    "g1_double": (6 * ROW, 8 * MUL_OPS + 20 * ADD_OPS),
+    "poseidon_hash2": (3 * ROW, 828 * MUL_OPS + 585 * ADD_OPS),
+    "mimc_hash2": (3 * ROW, MIMC_OPS),
+}
+# the kernels the depth-16 round trip must launch (K6 and K7 run only in
+# their own phases)
+DEPTH16_KERNELS = ("mont_mul", "mod_add", "mod_sub", "g1_add", "g1_double",
+                   "poseidon_hash2", "ntt_butterfly")
 
 # device symbol of each kernel, as the profiler names it
 KERNEL_SYMBOLS = {"mont_mul": "field_op_kernel<0>", "mod_add": "field_op_kernel<1>",
                   "mod_sub": "field_op_kernel<2>", "g1_add": "g1_add_kernel",
-                  "g1_double": "g1_dbl_kernel", "poseidon_hash2": "poseidon2_kernel"}
+                  "g1_double": "g1_dbl_kernel", "poseidon_hash2": "poseidon2_kernel",
+                  "ntt_butterfly": "ntt_stage_kernel", "mimc_hash2": "mimc2_kernel",
+                  "ntt_cols": "ntt_cols_kernel"}
 
 
 def fail(msg: str) -> None:
@@ -101,10 +157,10 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound(name: str, n: int) -> tuple[float, str]:
-    _, _, nbytes, ops = KERNELS[name]
-    t_bytes = n * nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n * ops / INT32_OPS_PER_S * 1e3
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take for this work, and what sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -212,7 +268,8 @@ def edge_points(torch, gen, n: int, dev):
 
 def check_kernels(torch, dev) -> dict:
     from owshen_tpu_torch.curves import bn254
-    from owshen_tpu_torch.kernels import build, field_ops, g1, poseidon
+    from owshen_tpu_torch.kernels import build, field_ops, g1, mimc, ntt, poseidon
+    from owshen_tpu_torch.ops.ntt import col_twiddles
     from owshen_tpu_torch.oracle.field import P_FQ, P_FR
 
     t0 = time.time()
@@ -226,7 +283,9 @@ def check_kernels(torch, dev) -> dict:
     gen = torch.Generator().manual_seed(7)
     results = {}
 
-    def record(name, n, kernel, plain, err, reps):
+    def record(name, n, kernel, plain, err, reps, work=None):
+        """Times kernel and twin; `work` is (bytes, operations) of one call,
+        by default n items of PER_ITEM[name]."""
         if err != 0:
             fail(f"{name}: kernel disagrees with its plain version (max |diff| {err})")
         call_ms = time_ms(torch, kernel, reps)
@@ -235,7 +294,9 @@ def check_kernels(torch, dev) -> dict:
         if ms is None:
             ms, timing = call_ms, "events"
         plain_ms = time_ms(torch, plain, max(1, reps // 20))
-        b_ms, b_by = bound(name, n)
+        if work is None:
+            work = (n * PER_ITEM[name][0], n * PER_ITEM[name][1])
+        b_ms, b_by = bound(*work)
         results[name] = {"n": n, "ms": ms, "call_ms": call_ms, "timing": timing,
                          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                          "max_abs_err": err}
@@ -280,6 +341,39 @@ def check_kernels(torch, dev) -> dict:
                       poseidon.poseidon_hash2_plain(left, right))
     record("poseidon_hash2", n4, lambda: poseidon.poseidon_hash2(left, right),
            lambda: poseidon.poseidon_hash2_plain(left, right), err, 20)
+
+    # K5: the last stage of the 2^20 NTT (2^19 butterflies), where twiddle j
+    # is table row j, so the edge rows meet in a, b and w; in place, so the
+    # kernel and the twin each get a copy (timing keeps transforming it)
+    log5 = 20
+    x5 = rand_field(torch, gen, P_FR, 1 << log5, dev)
+    x5[1 << (log5 - 1):(1 << (log5 - 1)) + 4] = x5[:4]
+    tab5 = rand_field(torch, gen, P_FR, 1 << (log5 - 1), dev)
+    xk, xp = x5.clone(), x5.clone()
+    err = max_abs_err(torch, ntt.butterfly_stage(xk, tab5, log5),
+                      ntt.butterfly_stage_plain(xp, tab5, log5))
+    half5 = 1 << (log5 - 1)
+    record("ntt_butterfly", half5, lambda: ntt.butterfly_stage(xk, tab5, log5),
+           lambda: ntt.butterfly_stage_plain(xp, tab5, log5), err, 50,
+           work=(2 * (1 << log5) * ROW + half5 * ROW, half5 * BFLY_OPS))
+
+    # K6 at 2^16 hashes
+    n6 = 1 << 16
+    left, right = rand_field(torch, gen, P_FR, n6, dev), rand_field(torch, gen, P_FR, n6, dev)
+    right[4:8] = left[:4]
+    err = max_abs_err(torch, mimc.mimc_hash2(left, right), mimc.mimc_hash2_plain(left, right))
+    record("mimc_hash2", n6, lambda: mimc.mimc_hash2(left, right),
+           lambda: mimc.mimc_hash2_plain(left, right), err, 20)
+
+    # K7: the first level of the 2^20 fused NTT, 2^10 columns of 2^10 points
+    la = 10
+    x7 = rand_field(torch, gen, P_FR, 1 << 20, dev).view(1 << la, -1, 16)
+    tw7 = col_twiddles(la, False, dev)
+    err = max_abs_err(torch, ntt.ntt_cols(x7, tw7), ntt.ntt_cols_plain(x7, tw7))
+    cols = x7.shape[1]
+    record("ntt_cols", cols, lambda: ntt.ntt_cols(x7, tw7), lambda: ntt.ntt_cols_plain(x7, tw7),
+           err, 50, work=(2 * (1 << 20) * ROW + tw7.shape[0] * ROW,
+                          cols * (1 << (la - 1)) * la * BFLY_OPS))
     return results
 
 
@@ -288,8 +382,6 @@ def check_kernels(torch, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 def round_trip_depth16(torch, dev) -> dict:
-    import random
-
     from owshen_tpu_torch import kernels
     from owshen_tpu_torch.circuits.pool import commitment_of
     from owshen_tpu_torch.fields.field import FR
@@ -380,8 +472,8 @@ def round_trip_depth16(torch, dev) -> dict:
         per_stage[stage] = {k: after[k] - before[k] for k in after}
         before = counts if stage == "first_prove" else after
     print("d16 launches by stage: " + json.dumps(per_stage), flush=True)
-    for name, c in counts.items():
-        if c <= 0:
+    for name in DEPTH16_KERNELS:
+        if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the depth-16 path")
     return {"stages": stages, "launches": counts, "launches_by_stage": per_stage}
 
@@ -415,6 +507,154 @@ def depth2_digest(dev) -> str:
     return proof_digest(proof)
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the NTT at 2^20 (K5 ladder and K7 fused)
+# ---------------------------------------------------------------------------
+
+def ntt_phase(torch, dev) -> dict:
+    from owshen_tpu_torch import kernels
+    from owshen_tpu_torch.fields.field import FR
+    from owshen_tpu_torch.ops.ntt import NttDomain, ntt_fused
+    from owshen_tpu_torch.oracle import ntt as ontt
+
+    log_n = 20
+    gen = torch.Generator().manual_seed(20)
+    x = rand_field(torch, gen, FR.p, 1 << log_n, dev)
+    dom = NttDomain(log_n)
+    n_inv = FR.const(dom.n_inv, device=dev)
+    out = {}
+
+    kernels.reset_launches()
+    t = time.time()
+    ladder = dom.ntt(x)
+    torch.cuda.synchronize()
+    out["ladder_first_s"] = time.time() - t
+    t = time.time()
+    fused = ntt_fused(x, log_n)
+    torch.cuda.synchronize()
+    out["fused_first_s"] = time.time() - t
+    if not torch.equal(ladder, fused):
+        fail("NTT 2^20: the K5 ladder and the fused K7 path differ")
+    if not torch.equal(dom.intt(ladder), x):
+        fail("NTT 2^20: intt(ntt(x)) != x on the K5 ladder")
+    if not torch.equal(FR.mul(ntt_fused(fused, log_n, inverse=True), n_inv), x):
+        fail("NTT 2^20: the fused inverse does not return the input")
+    torch.cuda.synchronize()
+    out["launches"] = kernels.launch_counts()
+    for name in ("ntt_butterfly", "ntt_cols"):
+        if out["launches"][name] <= 0:
+            fail(f"kernel {name} was not launched on the 2^20 NTT path")
+    print("ntt 2^20: ladder == fused, both inverses return the input; launches "
+          + json.dumps({k: v for k, v in out["launches"].items() if v}), flush=True)
+
+    reps = 5
+    for route, fn in (("ladder", lambda: dom.ntt(x)), ("fused", lambda: ntt_fused(x, log_n))):
+        fn()
+        torch.cuda.synchronize()
+        t = time.time()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[f"{route}_s"] = (time.time() - t) / reps
+        wall, busy = device_busy(torch, fn)
+        out[f"{route}_profiled_s"], out[f"{route}_busy_s"] = wall, busy
+        print(f"ntt 2^20 {route}: {out[f'{route}_s']:.5f} s per transform; under the "
+              f"profiler {wall:.5f} s, device busy {busy:.5f} s", flush=True)
+
+    rng = random.Random(10)
+    xs = [rng.randrange(FR.p) for _ in range(1 << 10)]
+    xs[:3] = [0, 1, FR.p - 1]
+    want = ontt.ntt(xs)
+    small = NttDomain(10)
+    if FR.decode(small.ntt(FR.encode(xs, device=dev))) != want \
+            or FR.decode(ntt_fused(FR.encode(xs, device=dev), 10)) != want:
+        fail("NTT 2^10: a route differs from the host oracle")
+    xs = seeded_ints(NTT_DIGEST_SEED, 1 << NTT_DIGEST_LOGN, FR.p)
+    dom12 = NttDomain(NTT_DIGEST_LOGN)
+    for route, y in (("ladder", dom12.ntt(FR.encode(xs, device=dev))),
+                     ("fused", ntt_fused(FR.encode(xs, device=dev), NTT_DIGEST_LOGN))):
+        digest = values_digest(FR.decode(y))
+        if digest != NTT_DIGEST:
+            fail(f"NTT 2^12 ({route}): digest {digest} != JAX reference {NTT_DIGEST}")
+    print("ntt 2^10 == host oracle on both routes; 2^12 digest matches", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the dense MiMC tree over 2^20 leaves (K6)
+# ---------------------------------------------------------------------------
+
+def mimc_phase(torch, dev) -> dict:
+    from owshen_tpu_torch import kernels
+    from owshen_tpu_torch.fields.field import FR
+    from owshen_tpu_torch.kernels.mimc import mimc_hash2_plain
+    from owshen_tpu_torch.ops.merkle import build_levels, merkle_path, merkle_root, verify_path
+
+    depth = 20
+    gen = torch.Generator().manual_seed(21)
+    leaves = rand_field(torch, gen, FR.p, 1 << depth, dev)
+    out = {}
+
+    kernels.reset_launches()
+    t = time.time()
+    levels = build_levels(leaves, "mimc")
+    torch.cuda.synchronize()
+    out["build_first_s"] = time.time() - t
+    if kernels.launch_counts()["mimc_hash2"] != depth:
+        fail(f"MiMC 2^20: build_levels made {kernels.launch_counts()['mimc_hash2']} K6 "
+             f"launches, not one per level ({depth})")
+    root = levels[-1][0]
+    idx = torch.randint(0, 1 << depth, (1024,), generator=gen).tolist()
+    t = time.time()
+    sibs, bits = merkle_path(levels, idx)
+    ok = verify_path(leaves[idx], sibs, bits, root, "mimc")
+    bad_leaf = leaves[idx].clone()
+    bad_leaf[0, 0] ^= 1
+    bad = verify_path(bad_leaf, sibs, bits, root, "mimc")
+    torch.cuda.synchronize()
+    out["paths_s"] = time.time() - t
+    if not bool(ok.all()):
+        fail("MiMC 2^20: a valid authentication path was rejected")
+    if bool(bad[0]) or not bool(bad[1:].all()):
+        fail("MiMC 2^20: the tampered leaf was accepted")
+    out["launches"] = kernels.launch_counts()
+    if out["launches"]["mimc_hash2"] <= 0:
+        fail("kernel mimc_hash2 was not launched on the dense MiMC path")
+    print(f"mimc 2^20: built in {out['build_first_s']:.4f} s, 1024 paths accepted and the "
+          f"tampered leaf rejected in {out['paths_s']:.4f} s; launches "
+          + json.dumps({k: v for k, v in out["launches"].items() if v}), flush=True)
+
+    reps = 5
+    t = time.time()
+    for _ in range(reps):
+        build_levels(leaves, "mimc")
+    torch.cuda.synchronize()
+    out["build_s"] = (time.time() - t) / reps
+    wall, busy = device_busy(torch, lambda: build_levels(leaves, "mimc"))
+    out["build_profiled_s"], out["build_busy_s"] = wall, busy
+
+    # every level against the twins applied to the level below, in one twin
+    # call over all 2^20 − 1 nodes: by induction from the leaves, the
+    # kernel's root is the root the twins compute
+    t = time.time()
+    twin = mimc_hash2_plain(torch.cat([lvl[0::2] for lvl in levels[:-1]]),
+                            torch.cat([lvl[1::2] for lvl in levels[:-1]]))
+    torch.cuda.synchronize()
+    out["twin_s"] = time.time() - t
+    if not torch.equal(twin, torch.cat(levels[1:])):
+        fail("MiMC 2^20: a level of the kernel's tree differs from the plain twins'")
+    print(f"mimc 2^20: {out['build_s']:.4f} s per tree (profiled {wall:.4f} s, device busy "
+          f"{busy:.4f} s); every level == the plain twins' over the level below, so the "
+          f"root is theirs ({out['twin_s']:.1f} s)", flush=True)
+
+    vals = seeded_ints(MIMC_DIGEST_SEED, MIMC_DIGEST_LEAVES, FR.p)
+    digest = values_digest(FR.decode(merkle_root(FR.encode(vals, device=dev), "mimc")))
+    if digest != MIMC_DIGEST:
+        fail(f"MiMC 2^10 root digest {digest} != JAX reference {MIMC_DIGEST}")
+    print("mimc 2^10 root digest matches", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -439,16 +679,27 @@ def main() -> int:
     print(f"d2 digest {digest} ({time.time() - t:.2f} s)", flush=True)
     if digest != DEPTH2_DIGEST:
         fail(f"depth-2 proof digest {digest} != JAX reference {DEPTH2_DIGEST}")
+    nttp = ntt_phase(torch, dev)
+    mimcp = mimc_phase(torch, dev)
 
+    # each kernel's launches on the path it belongs to: K1–K5 on the
+    # depth-16 round trip, K7 on the 2^20 NTT, K6 on the 2^20-leaf tree
+    launches = dict(trip["launches"])
+    launches["ntt_cols"] = nttp["launches"]["ntt_cols"]
+    launches["mimc_hash2"] = mimcp["launches"]["mimc_hash2"]
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": trip["launches"][name], "max_abs_err": kern[name]["max_abs_err"],
+         "launches": launches[name], "max_abs_err": kern[name]["max_abs_err"],
          "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"], "bound_by": kern[name]["bound_by"],
          "library_ms": None, "n": kern[name]["n"], "call_ms": kern[name]["call_ms"],
          "timing": kern[name]["timing"]}
-        for name, (src, rep, _, _) in KERNELS.items()],
+        for name, (src, rep) in KERNELS.items()],
         "stages_s": trip["stages"], "launches_by_stage": trip["launches_by_stage"],
+        "ntt_2_20": {k: v for k, v in nttp.items() if k != "launches"},
+        "mimc_2_20": {k: v for k, v in mimcp.items() if k != "launches"},
+        "launches_by_phase": {"depth16": trip["launches"], "ntt_2_20": nttp["launches"],
+                              "mimc_2_20": mimcp["launches"]},
         "card": smi, "total_s": time.time() - t_start}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

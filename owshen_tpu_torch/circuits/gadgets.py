@@ -1,15 +1,16 @@
-"""Circuit gadgets: the Poseidon permutation and Merkle paths as R1CS.
+"""Circuit gadgets: the Poseidon and MiMC7 permutations and Merkle paths as
+R1CS.
 
 Constraint shape: each x^5 S-box costs 3 multiplications (x², x⁴, x⁵); MDS
-and round-constant layers are free linear combinations.  These define the
-in-circuit hash whose outputs must bit-exactly match the CUDA kernel behind
-ops/hash.py (same constants module)."""
+and round-constant layers are free linear combinations.  MiMC7's x^7 costs
+4.  These define the in-circuit hashes whose outputs must bit-exactly match
+the CUDA kernels behind ops/hash.py (same constants module)."""
 
 from __future__ import annotations
 
 from ..oracle.field import P_FR
 from ..groth16.r1cs import LC, Builder
-from ..ops.constants import POSEIDON_RF, POSEIDON_RP, poseidon_params
+from ..ops.constants import POSEIDON_RF, POSEIDON_RP, mimc7_constants, poseidon_params
 
 P = P_FR
 
@@ -38,6 +39,30 @@ def poseidon_gadget(b: Builder, inputs: list[LC]) -> LC:
             for i in range(t)
         ]
     return state[0]
+
+
+def mimc7_gadget(b: Builder, x: LC, k: LC) -> LC:
+    """circomlib MiMC7(x, k): 91 rounds of (r + k + c)^7, output r + k."""
+    cts = mimc7_constants()
+
+    def pow7(u: LC) -> LC:
+        u2 = b.square(u)
+        u4 = b.square(u2)
+        u6 = b.mul(u4, u2)
+        return b.mul(u6, u)
+
+    r = pow7(x + k)
+    for c in cts[1:]:
+        r = pow7(r + k + LC.const(c))
+    return r + k
+
+
+def mimc7_multi_gadget(b: Builder, inputs: list[LC]) -> LC:
+    """MultiMiMC7 with key 0: r += x + MiMC7(x, r)."""
+    r = LC.const(0)
+    for x in inputs:
+        r = r + x + mimc7_gadget(b, x, r)
+    return r
 
 
 def merkle_path_gadget(b: Builder, leaf: LC, path_bits: list[LC],

@@ -7,6 +7,11 @@ Environment overrides (optional):
                                      tables on the card (default 40: half of
                                      an 80 GB H100, leaving room for the
                                      gathered rows and the fold)
+    OWSHEN_NTT_PALLAS_MIN_LOGN=<int> smallest log_n that NttDomain.ntt/intt
+                                     route to the fused NTT (K7, ops/ntt.py
+                                     ntt_fused) instead of the stage ladder
+                                     (K5); the JAX package's switch of the
+                                     same name, default 31 (opt-in)
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 class Settings:
     chain_id: int
     fixed_table_max_gb: float
+    ntt_fused_min_logn: int
 
 
 @functools.lru_cache(maxsize=None)
@@ -29,6 +35,7 @@ def settings() -> Settings:
     return Settings(
         chain_id=int(os.environ.get("OWSHEN_CHAIN_ID") or 918273),
         fixed_table_max_gb=float(os.environ.get("OWSHEN_FIXED_TABLE_MAX_GB") or 40),
+        ntt_fused_min_logn=int(os.environ.get("OWSHEN_NTT_PALLAS_MIN_LOGN") or 31),
     )
 
 

@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels of the port (K1–K4) and their wrappers.
+"""Hand-written CUDA kernels of the port (K1–K7) and their wrappers.
 
 Every wrapper launches its kernel on CUDA tensors (or raises) and runs its
 plain PyTorch twin on CPU tensors; `launch_counts()` reads how often each
@@ -6,7 +6,7 @@ kernel was launched and `reset_launches()` sets the counts to zero."""
 
 from __future__ import annotations
 
-from . import field_ops, g1, poseidon
+from . import field_ops, g1, mimc, ntt, poseidon
 
 WRAPPERS = {
     "mont_mul": field_ops.mont_mul,
@@ -15,6 +15,9 @@ WRAPPERS = {
     "g1_add": g1.g1_add,
     "g1_double": g1.g1_double,
     "poseidon_hash2": poseidon.poseidon_hash2,
+    "ntt_butterfly": ntt.butterfly_stage,
+    "mimc_hash2": mimc.mimc_hash2,
+    "ntt_cols": ntt.ntt_cols,
 }
 
 

@@ -26,7 +26,7 @@ import numpy as np
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("field_ops", "g1", "poseidon")
+SOURCES = ("field_ops", "g1", "poseidon", "ntt", "mimc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +46,14 @@ SIGNATURES = {
     "poseidon": {
         "poseidon2_launch": (_P, _P, _P, _LL, _P),
         "poseidon_consts_upload": (_P, _P, _I),
+    },
+    "ntt": {
+        "ntt_stage_launch": (_P, _P, _LL, _LL, _I, _I, _P),
+        "ntt_cols_launch": (_P, _P, _P, _I, _LL, _P),
+    },
+    "mimc": {
+        "mimc2_launch": (_P, _P, _P, _LL, _P),
+        "mimc_consts_upload": (_P, _I),
     },
 }
 
@@ -99,6 +107,16 @@ def _poseidon_consts_words():
     return np.ascontiguousarray(c), np.ascontiguousarray(m), n_rounds
 
 
+def _mimc_consts_words():
+    """The 91 MiMC7 round constants (91, 8) as Montgomery words."""
+    from ..oracle.field import P_FR
+    from ..ops.constants import mimc7_constants
+
+    cts = mimc7_constants()
+    c = np.asarray([words_le(v * (1 << 256) % P_FR) for v in cts], np.uint32)
+    return np.ascontiguousarray(c), len(cts)
+
+
 class _Libraries:
     """The loaded kernel libraries of this process (built on first use)."""
 
@@ -149,6 +167,9 @@ class _Libraries:
                 c, m, n_rounds = _poseidon_consts_words()
                 check(lib.poseidon_consts_upload(c.ctypes.data, m.ctypes.data, n_rounds),
                       "poseidon: round constants")
+            if name == "mimc":
+                c, n_rounds = _mimc_consts_words()
+                check(lib.mimc_consts_upload(c.ctypes.data, n_rounds), "mimc: round constants")
             self._libs[name] = lib
 
 

@@ -1,8 +1,12 @@
-"""Round-constant derivation for Poseidon over BN254 Fr.
+"""Round-constant derivation for MiMC7 and Poseidon over BN254 Fr.
 
-It replaces the reference's placeholder hash `hash(inp) = ∏ inp`
+These replace the reference's placeholder hash `hash(inp) = ∏ inp`
 (reference: src/blockchain/tx/owshen_airdrop/babyjubjub/mod.rs:202-204) with
-the real circomlib-compatible permutation named in BASELINE.json.
+the real circomlib-compatible permutations named in BASELINE.json.
+
+MiMC7 constants: iterated keccak256 chain seeded with the ASCII seed
+(circomlib's mimc7 derivation): c[0] = 0, k = keccak256(seed),
+c[i] = keccak256(c[i-1]) as big-endian ints reduced mod p.
 
 Poseidon constants: Grain-LFSR stream per the Poseidon reference
 parameter-generation procedure (GF(p), x^5 S-box, n=254), yielding
@@ -16,11 +20,26 @@ from __future__ import annotations
 import functools
 
 from ..oracle.field import P_FR
+from .keccak import keccak256
 
 # circomlib parameterization: R_F = 8 full rounds; partial rounds per t
 # (index t-2), x^5 S-box.
 POSEIDON_RF = 8
 POSEIDON_RP = [56, 57, 56, 60, 60, 63, 64, 63, 60, 66, 60, 65, 70, 60, 64, 68]
+
+MIMC_ROUNDS = 91
+MIMC_SEED = b"mimc"
+
+
+@functools.lru_cache(maxsize=None)
+def mimc7_constants(n_rounds: int = MIMC_ROUNDS, p: int = P_FR) -> tuple[int, ...]:
+    cts = [0]
+    c = keccak256(MIMC_SEED)
+    for _ in range(1, n_rounds):
+        c = keccak256(c)
+        cts.append(int.from_bytes(c, "big") % p)
+    return tuple(cts)
+
 
 class _Grain:
     """80-bit Grain LFSR used by the Poseidon reference parameter generator."""

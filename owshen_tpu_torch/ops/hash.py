@@ -1,9 +1,11 @@
-"""Poseidon over BN254 Fr on tensors (Montgomery int32[..., 16]).
+"""MiMC7 and Poseidon over BN254 Fr on tensors (Montgomery int32[..., 16]).
 
-`poseidon_hash2` — the Merkle node hash, circomlib t = 3 — is one launch
-of K4 (kernels/poseidon.py).  `poseidon` takes 1..16 inputs; the t = 3 case
-rides K4, other widths compose the permutation from K1 launches.  MiMC
-waits for its kernel (K6)."""
+The Merkle node hashes are one kernel launch each: `poseidon_hash2`
+(circomlib Poseidon t = 3) is K4 (kernels/poseidon.py), `mimc_hash2`
+(circomlib MultiMiMC7 with key 0) is K6 (kernels/mimc.py).  `poseidon`
+takes 1..16 inputs; the t = 3 case rides K4, other widths compose the
+permutation from K1 launches.  `mimc7` and `mimc7_multi` take any key and
+compose their rounds from K1 launches."""
 
 from __future__ import annotations
 
@@ -12,8 +14,55 @@ import functools
 import torch
 
 from ..fields.field import FR
+from ..kernels.mimc import mimc_hash2 as _mimc_hash2_kernel
 from ..kernels.poseidon import poseidon_hash2 as _poseidon_hash2_kernel
-from .constants import POSEIDON_RF, POSEIDON_RP, poseidon_params
+from .constants import POSEIDON_RF, POSEIDON_RP, mimc7_constants, poseidon_params
+
+
+# ---------------------------------------------------------------------------
+# MiMC7
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _mimc_consts_mont() -> torch.Tensor:
+    """The 91 round constants as int32[91, 16] Montgomery limbs."""
+    return FR.encode(list(mimc7_constants()))
+
+
+def _pow7(x):
+    x2 = FR.sqr(x)
+    x4 = FR.sqr(x2)
+    return FR.mul(FR.mul(x4, x2), x)
+
+
+def mimc7(x, k):
+    """circomlib MiMC7(x_in, k), batched; x and k broadcast."""
+    F = FR
+    cts = _mimc_consts_mont().to(x.device)
+    r = _pow7(F.add(x, k))
+    for i in range(1, cts.shape[0]):
+        r = _pow7(F.add(F.add(r, k), cts[i]))
+    return F.add(r, k)
+
+
+def mimc7_multi(inputs, key=None):
+    """circomlib MultiMiMC7: r = k; for x in inputs: r += x + MiMC7(x, r)."""
+    F = FR
+    r = key if key is not None else torch.zeros_like(inputs[0])
+    for x in inputs:
+        r = F.add(F.add(r, x), mimc7(x, r))
+    return r
+
+
+def mimc_hash2(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """Merkle node hash of the MiMC tree: MultiMiMC7([left, right], key 0),
+    one K6 launch."""
+    return _mimc_hash2_kernel(left, right)
+
+
+# ---------------------------------------------------------------------------
+# Poseidon
+# ---------------------------------------------------------------------------
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,25 +1,37 @@
-"""Radix-2 NTT over BN254 Fr, after owshen_tpu/ops/ntt.py.
+"""Radix-2 NTT over BN254 Fr, after owshen_tpu/ops/ntt.py and
+owshen_tpu/pallas/ntt_kernels.py.
 
-An iterative decimation-in-time transform: a bit-reversal gather, then
-log₂n stages, each one K1 multiply by the stage's twiddles and one K1 add
-and subtract over the whole array.  The fused butterfly kernel (K5) and the
-fully fused NTT (K7) are later work.  Twiddle and coset tables are built on
-the card by binary index decomposition and cached per device."""
+`NttDomain.ntt/intt` run an iterative decimation-in-time transform: a
+bit-reversal gather, then log₂n stages, each one launch of K5
+(kernels/ntt.py `butterfly_stage`) in place on the transform's array, at
+every size (the TPU's 2^14-row threshold for its butterfly kernel came from
+Mosaic's lane tiling).  From `settings().ntt_fused_min_logn` up (default 31,
+opt-in, as on the TPU) they route 2-D inputs to `ntt_fused`, the port of
+`ntt_pallas`: a recursive Bailey split into fused column NTTs (K7) of at
+most 2^FUSED_MAX_LOGN points, with one K1 multiply for the ω^{k1·i2}
+correction between the levels and a transpose outside the kernels.  The
+1/n scaling of `intt` and the coset multiplies are K1 launches.  Twiddle
+and coset tables are built on the device by binary index decomposition and
+cached per device."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from ..config import settings
 from ..fields.field import FR, Field
+from ..kernels.ntt import bitrev_indices, butterfly_stage, ntt_cols
 
-
-def _bitrev_indices(log_n: int) -> torch.Tensor:
-    n = 1 << log_n
-    idx = torch.arange(n, dtype=torch.int64)
-    rev = torch.zeros(n, dtype=torch.int64)
-    for i in range(log_n):
-        rev = (rev << 1) | ((idx >> i) & 1)
-    return rev
+# Largest fused column of the Bailey split.  The TPU capped it at 2^7 to
+# bound Mosaic's compile time; on the card the limit is shared memory: a
+# 2^10 column and its 2^9 twiddles take 48 KB (8 words each), so four
+# blocks of 256 threads fit an SM's 227 KB.  At 2^20, any cap from 10 up
+# gives the same split (2^10 × 2^10: two fused levels, one correction
+# multiply, one transpose); a larger cap only changes sizes above 2^20, and
+# costs blocks per SM (2^11: two, 2^12: one).
+FUSED_MAX_LOGN = 10
 
 
 def powers_device(F: Field, base: int, n: int, device) -> torch.Tensor:
@@ -58,7 +70,7 @@ class NttDomain:
         if t is None:
             F, n = self.F, self.n
             if name == "bitrev":
-                t = _bitrev_indices(self.log_n).to(dev)
+                t = bitrev_indices(self.log_n).to(dev)
             elif name == "pows":
                 t = powers_device(F, self.omega, max(n // 2, 1), dev)
             elif name == "pows_inv":
@@ -74,26 +86,26 @@ class NttDomain:
 
     def _transform(self, x: torch.Tensor, pows: torch.Tensor) -> torch.Tensor:
         """x: int32[n, ..., 16] Montgomery -> NTT along axis 0, natural order
-        in and out; trailing axes are batch."""
-        F, n = self.F, self.n
-        rest = x.shape[1:]
-        x = x.index_select(0, self._table("bitrev", x.device))
+        in and out; trailing axes are batch.  One K5 launch per stage."""
+        x = x.index_select(0, self._table("bitrev", x.device)).contiguous()
         for s in range(1, self.log_n + 1):
-            m = 1 << s
-            half = m // 2
-            w = pows[:: n // m][:half]                       # ω_m^j, j < half
-            w = w.reshape((1, half) + (1,) * (len(rest) - 1) + (F.L,))
-            y = x.reshape((n // m, m) + rest)
-            a, b = y[:, :half], y[:, half:]
-            t = F.mul(b, w)
-            x = torch.cat([F.add(a, t), F.sub(a, t)], dim=1).reshape((n,) + rest)
+            butterfly_stage(x, pows, s, self.F.name)
         return x
 
+    def _fused_ok(self, x: torch.Tensor) -> bool:
+        return (self.F is FR and x.ndim == 2
+                and self.log_n >= settings().ntt_fused_min_logn)
+
     def ntt(self, x: torch.Tensor) -> torch.Tensor:
+        if self._fused_ok(x):
+            return ntt_fused(x, self.log_n)
         return self._transform(x, self._table("pows", x.device))
 
     def intt(self, x: torch.Tensor) -> torch.Tensor:
-        y = self._transform(x, self._table("pows_inv", x.device))
+        if self._fused_ok(x):
+            y = ntt_fused(x, self.log_n, inverse=True)
+        else:
+            y = self._transform(x, self._table("pows_inv", x.device))
         return self.F.mul(y, self.F.const(self.n_inv, device=x.device))
 
     # ---- coset transforms (h(x) = (AB − C)/Z on a coset, Groth16) ----
@@ -115,3 +127,63 @@ class NttDomain:
         """1 / Z_H(g) where Z_H(x) = x^n − 1 (constant on the coset)."""
         p = self.F.p
         return pow((pow(self.coset_gen, self.n, p) - 1) % p, -1, p)
+
+
+# ---------------------------------------------------------------------------
+# The fused transform (K7 columns, recursive Bailey split)
+# ---------------------------------------------------------------------------
+
+def _root(log_n: int, inverse: bool) -> int:
+    p = FR.p
+    w = pow(FR.generator, (p - 1) >> log_n, p)
+    return pow(w, -1, p) if inverse else w
+
+
+@functools.lru_cache(maxsize=None)
+def col_twiddles(log_n1: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    """ω_{n1}^j for j < n1/2 (Montgomery), K7's stage table."""
+    return powers_device(FR, _root(log_n1, inverse), max((1 << log_n1) // 2, 1), device)
+
+
+@functools.lru_cache(maxsize=None)
+def _full_twiddles(log_m: int, log_a: int, inverse: bool,
+                   device: torch.device) -> torch.Tensor:
+    """The ω_m^{k1·i2} correction table (a, b, 16) of the split m = a·b,
+    built on the device: the m powers of ω_m, then one gather by
+    (k1·i2) mod m."""
+    m = 1 << log_m
+    a, b = 1 << log_a, 1 << (log_m - log_a)
+    pows = powers_device(FR, _root(log_m, inverse), m, device)
+    k1 = torch.arange(a, device=device)[:, None]
+    i2 = torch.arange(b, device=device)[None, :]
+    return pows[((k1 * i2) % m).reshape(-1)].reshape(a, b, FR.L)
+
+
+def _axis0_ntt_rec(mat: torch.Tensor, log_m: int, inverse: bool) -> torch.Tensor:
+    """NTT along axis 0 of int32[m, batch, 16] (natural order in and out),
+    Bailey-split until a column fits one K7 block: out[k1 + a·k2]."""
+    m, batch = mat.shape[0], mat.shape[1]
+    if log_m <= FUSED_MAX_LOGN:
+        return ntt_cols(mat, col_twiddles(log_m, inverse, mat.device))
+    la = min(FUSED_MAX_LOGN, (log_m + 1) // 2)
+    lb = log_m - la
+    a, b = 1 << la, 1 << lb
+    x = _axis0_ntt_rec(mat.reshape(a, b * batch, FR.L), la, inverse)   # A[k1, i2·batch]
+    tw = _full_twiddles(log_m, la, inverse, mat.device)[:, :, None, :]
+    x = FR.mul(x.view(a, b, batch, FR.L), tw)
+    # rows: NTT_b over i2; out[k2, k1] flattens row-major to k1 + a·k2
+    x = x.permute(1, 0, 2, 3).contiguous().view(b, a * batch, FR.L)
+    x = _axis0_ntt_rec(x, lb, inverse)
+    return x.view(m, batch, FR.L)
+
+
+def ntt_fused(x: torch.Tensor, log_n: int, inverse: bool = False) -> torch.Tensor:
+    """The n-point NTT of x int32[n, 16] (Montgomery), natural order in and
+    out, through K7 (the port of `ntt_pallas`).  The caller handles the 1/n
+    scaling of the inverse."""
+    n = 1 << log_n
+    if x.shape != (n, FR.L):
+        raise ValueError(f"expected int32[{n}, {FR.L}], got {list(x.shape)}")
+    if log_n == 0:
+        return x.clone()
+    return _axis0_ntt_rec(x.reshape(n, 1, FR.L), log_n, inverse).reshape(n, FR.L)

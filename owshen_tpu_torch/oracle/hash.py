@@ -1,15 +1,32 @@
-"""Pure-Python Poseidon oracle (circomlib-compatible semantics).
+"""Pure-Python MiMC7 / Poseidon oracle (circomlib-compatible semantics).
 
-It defines the bit-exactness gate for the CUDA Poseidon kernel — the real
-permutation that replaces the reference's placeholder `∏ inp` hash
+It defines the bit-exactness gate for the CUDA hash kernels — the real
+permutations that replace the reference's placeholder `∏ inp` hash
 (reference: babyjubjub/mod.rs:202-204)."""
 
 from __future__ import annotations
 
 from .field import P_FR
-from ..ops.constants import poseidon_params, POSEIDON_RF, POSEIDON_RP
+from ..ops.constants import mimc7_constants, poseidon_params, POSEIDON_RF, POSEIDON_RP
 
 P = P_FR
+
+
+def mimc7(x: int, k: int, p: int = P) -> int:
+    """circomlib MiMC7(x_in, k): 91 rounds of r = (r + k + c[i])^7."""
+    cts = mimc7_constants()
+    r = pow((x + k) % p, 7, p)
+    for i in range(1, len(cts)):
+        r = pow((r + k + cts[i]) % p, 7, p)
+    return (r + k) % p
+
+
+def mimc7_multi(inputs: list[int], key: int = 0, p: int = P) -> int:
+    """circomlib MultiMiMC7: r = k; for each x: r = r + x + MiMC7(x, r)."""
+    r = key % p
+    for x in inputs:
+        r = (r + x + mimc7(x, r, p)) % p
+    return r
 
 
 def poseidon_permute(state: list[int], p: int = P) -> list[int]:

@@ -14,7 +14,8 @@ import torch
 import chip_smoke
 from owshen_tpu_torch.curves import bn254
 from owshen_tpu_torch.fields.field import FQ, FR
-from owshen_tpu_torch.kernels import field_ops, g1, poseidon
+from owshen_tpu_torch.kernels import field_ops, g1, mimc, ntt, poseidon
+from owshen_tpu_torch.ops.ntt import NttDomain, col_twiddles, ntt_fused
 from owshen_tpu_torch.oracle import curve as ocurve
 
 pytestmark = pytest.mark.cuda
@@ -66,6 +67,23 @@ def test_k4_matches_plain(card):
     a = FR.encode(rand_ints(rng, FR.p, 300), device=card)
     b = FR.encode(rand_ints(rng, FR.p, 300)[::-1], device=card)
     assert torch.equal(poseidon.poseidon_hash2(a, b), poseidon.poseidon_hash2_plain(a, b))
+
+
+def test_k5_k6_k7_match_plain(card):
+    rng = np.random.default_rng(64)
+    x = FR.encode(rand_ints(rng, FR.p, 1024), device=card).view(256, 4, 16)
+    pows = NttDomain(8)._table("pows", card)
+    for s in range(1, 9):                        # every stage, batch of 4 columns
+        assert torch.equal(ntt.butterfly_stage(x.clone(), pows, s),
+                           ntt.butterfly_stage_plain(x.clone(), pows, s))
+    a = FR.encode(rand_ints(rng, FR.p, 300), device=card)
+    b = FR.encode(rand_ints(rng, FR.p, 300)[::-1], device=card)
+    assert torch.equal(mimc.mimc_hash2(a, b), mimc.mimc_hash2_plain(a, b))
+    for inverse in (False, True):
+        tw = col_twiddles(8, inverse, card)
+        assert torch.equal(ntt.ntt_cols(x, tw), ntt.ntt_cols_plain(x, tw))
+    y = FR.encode(rand_ints(rng, FR.p, 1 << 12), device=card)
+    assert torch.equal(ntt_fused(y, 12), NttDomain(12).ntt(y))
 
 
 def test_depth2_proof_on_card_matches_reference(card):
