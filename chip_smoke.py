@@ -8,9 +8,11 @@
    holds each one against its plain PyTorch twin on the card, at the shape
    its path gives it, including the edge values 0, 1, p − 1, the identity,
    P + P and P + (−P); equality is exact.  K1–K4 at the depth-16 shapes,
-   K5 on the last stage of the 2^20 NTT, K6 at 2^16 hashes, K7 on the first
-   level of the 2^20 fused NTT.  Times kernel and twin (profiler device
-   time, CUDA events) and computes each kernel's bound from its inputs.
+   K5 on the last stage of the 2^20 NTT, K6 at 2^16 hashes (and at N = 1,
+   33, 1000 and on edge rows), K7 on the first level of the 2^20 fused NTT.
+   Times kernel and twin (profiler device time, CUDA events), computes each
+   kernel's bound from its inputs, and counts K6's IMAD instructions in the
+   built library's SASS (cuobjdump).
 3. Drives the depth-16 pool round trip through the entry points a user
    calls: PrivacyPool(depth=16) with a real setup of the 4431-constraint
    withdraw circuit, a deposit of 4096 commitments, the root against the
@@ -30,7 +32,8 @@
    per level), every level against the plain twins applied to the level
    below (one twin call over all nodes, so the root is the twins' root), 1024
    authentication paths accepted and a tampered leaf rejected, and the root
-   over 2^10 seeded leaves against MIMC_DIGEST; K6 must be > 0.
+   over 2^10 seeded leaves against MIMC_DIGEST; K6 must be > 0.  Then each
+   level's K6 launch is timed alone (CUDA events) beside its bound.
 7. Prints the `kernels` JSON line, then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device, when the
@@ -100,12 +103,19 @@ def proof_digest(proof) -> str:
 # ---------------------------------------------------------------------------
 
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12     # 32-bit arithmetic outside the tensor cores
+# 32-bit integer multiply-add: 64 results per clock per SM at compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput; half the FP32 rate, which the 67e12 of the data sheet is),
+# × 132 SMs × 1.98 GHz (clocks.max.sm of an H100 80GB HBM3), two
+# operations each.  A microbenchmark of independent chains sustained 63.9
+# IMAD results per clock per SM on that card at 700 W (PERF.md §6)
+INT32_OPS_PER_S = 64 * 132 * 1.98e9 * 2
 MUL_OPS = 128 * 2 * 2       # 128 32×32→64 products = 256 multiply-adds = 512 ops
+SQR_OPS = 100 * 2 * 2       # a square: 36 word products + 64 to reduce
 ADD_OPS = 3 * 8             # add/sub with carry, subtract p, select: 8 words each
 ROW = 64                    # bytes of one int32[16] field element
 BFLY_OPS = MUL_OPS + 2 * ADD_OPS
-MIMC_OPS = 728 * MUL_OPS + 368 * ADD_OPS
+MIMC_OPS = 364 * SQR_OPS + 364 * MUL_OPS + 368 * ADD_OPS    # x^7: 2 squares, 2 products
 
 KERNELS = {
     # name: (source, replaced TPU kernel)
@@ -136,7 +146,7 @@ PER_ITEM = {
     "mod_sub": (3 * ROW, ADD_OPS),
     "g1_add": (9 * ROW, 12 * MUL_OPS + 27 * ADD_OPS),
     "g1_double": (6 * ROW, 8 * MUL_OPS + 20 * ADD_OPS),
-    "poseidon_hash2": (3 * ROW, 828 * MUL_OPS + 585 * ADD_OPS),
+    "poseidon_hash2": (3 * ROW, 162 * SQR_OPS + 666 * MUL_OPS + 585 * ADD_OPS),
     "mimc_hash2": (3 * ROW, MIMC_OPS),
 }
 # the kernels the depth-16 round trip must launch (K6 and K7 run only in
@@ -266,6 +276,36 @@ def edge_points(torch, gen, n: int, dev):
     return p, q, want, want_dbl
 
 
+def mimc_sass(build) -> dict:
+    """IMAD instructions of mimc2_kernel in the built library's SASS, by
+    opcode, and the multiply-add results they give (an IMAD.WIDE gives two:
+    the low and the high word).  The kernel holds one copy of the round (two
+    squarings, two products) inside its loop, so the total is one round's
+    plus a few address computations."""
+    import shutil
+    from pathlib import Path
+
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    tool = str(tool) if tool.is_file() else shutil.which("cuobjdump")
+    if tool is None:
+        fail("cuobjdump not found beside nvcc")
+    sass = subprocess.run([tool, "-sass", str(build.library_path("mimc"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, inside = {}, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "mimc2_kernel" in line
+        elif inside and "IMAD" in line:
+            op = next(w for w in line.replace(";", " ").split() if w.startswith("IMAD"))
+            counts[op] = counts.get(op, 0) + 1
+    total = sum(counts.values())
+    results = sum(n * (2 if ".WIDE" in op else 1) for op, n in counts.items())
+    print(f"mimc2_kernel SASS: {total} IMAD per round {json.dumps(counts)}, {results} "
+          f"multiply-add results; the bound counts {(2 * SQR_OPS + 2 * MUL_OPS) // 2}",
+          flush=True)
+    return {"imad": total, "multiply_adds": results, "by_opcode": counts}
+
+
 def check_kernels(torch, dev) -> dict:
     from owshen_tpu_torch.curves import bn254
     from owshen_tpu_torch.kernels import build, field_ops, g1, mimc, ntt, poseidon
@@ -277,7 +317,7 @@ def check_kernels(torch, dev) -> dict:
     print(f"build: {time.time() - t0:.1f} s", flush=True)
     for name, log in build.LIBRARIES.logs.items():
         regs = [ln.split("info    :")[-1].strip() for ln in log.splitlines()
-                if "registers" in ln]
+                if "registers" in ln or "spill" in ln]
         print(f"ptxas {name}: {'; '.join(regs)}", flush=True)
 
     gen = torch.Generator().manual_seed(7)
@@ -357,13 +397,29 @@ def check_kernels(torch, dev) -> dict:
            lambda: ntt.butterfly_stage_plain(xp, tab5, log5), err, 50,
            work=(2 * (1 << log5) * ROW + half5 * ROW, half5 * BFLY_OPS))
 
-    # K6 at 2^16 hashes
+    # K6 at 2^16 hashes, then at a few small N and on the edge rows: every
+    # pair of 0, 1, p − 1, p − 2, and left == right
     n6 = 1 << 16
     left, right = rand_field(torch, gen, P_FR, n6, dev), rand_field(torch, gen, P_FR, n6, dev)
     right[4:8] = left[:4]
     err = max_abs_err(torch, mimc.mimc_hash2(left, right), mimc.mimc_hash2_plain(left, right))
+    cases = {}
+    for n in (1, 33, 1000):
+        cases[f"n={n}"] = max_abs_err(torch, mimc.mimc_hash2(left[-n:], right[:n]),
+                                      mimc.mimc_hash2_plain(left[-n:], right[:n]))
+    pick = torch.arange(16, device=dev)
+    edge_l = torch.cat([left[pick // 4], left[8:12]])
+    edge_r = torch.cat([left[pick % 4], left[8:12]])
+    cases["edges"] = max_abs_err(torch, mimc.mimc_hash2(edge_l, edge_r),
+                                 mimc.mimc_hash2_plain(edge_l, edge_r))
+    print("mimc_hash2 max |diff| by case: " + json.dumps(cases), flush=True)
+    for case, case_err in cases.items():
+        if case_err != 0:
+            fail(f"mimc_hash2 ({case}): kernel disagrees with its plain version")
     record("mimc_hash2", n6, lambda: mimc.mimc_hash2(left, right),
            lambda: mimc.mimc_hash2_plain(left, right), err, 20)
+    results["mimc_hash2"]["cases"] = cases
+    results["mimc_hash2"]["sass"] = mimc_sass(build)
 
     # K7: the first level of the 2^20 fused NTT, 2^10 columns of 2^10 points
     la = 10
@@ -584,6 +640,34 @@ def ntt_phase(torch, dev) -> dict:
 # Phase 6: the dense MiMC tree over 2^20 leaves (K6)
 # ---------------------------------------------------------------------------
 
+def level_times(torch, levels, reps: int) -> list[dict]:
+    """Device ms of each level's K6 launch of a dense tree (CUDA events
+    around the launch alone, its operands made contiguous before), the mean
+    of `reps` trees, beside the level's bound."""
+    from owshen_tpu_torch.kernels.mimc import mimc_hash2
+
+    pairs = [(lvl[0::2].contiguous(), lvl[1::2].contiguous()) for lvl in levels[:-1]]
+    total = [0.0] * len(pairs)
+    for _ in range(reps):
+        marks = []
+        for left, right in pairs:
+            start, stop = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            start.record()
+            mimc_hash2(left, right)
+            stop.record()
+            marks.append((start, stop))
+        torch.cuda.synchronize()
+        for i, (start, stop) in enumerate(marks):
+            total[i] += start.elapsed_time(stop)
+    out = []
+    for (left, _), t in zip(pairs, total):
+        n = left.shape[0]
+        b_ms, b_by = bound(n * PER_ITEM["mimc_hash2"][0], n * PER_ITEM["mimc_hash2"][1])
+        out.append({"n": n, "ms": t / reps, "bound_ms": b_ms, "bound_by": b_by})
+    return out
+
+
 def mimc_phase(torch, dev) -> dict:
     from owshen_tpu_torch import kernels
     from owshen_tpu_torch.fields.field import FR
@@ -632,6 +716,12 @@ def mimc_phase(torch, dev) -> dict:
     out["build_s"] = (time.time() - t) / reps
     wall, busy = device_busy(torch, lambda: build_levels(leaves, "mimc"))
     out["build_profiled_s"], out["build_busy_s"] = wall, busy
+    out["levels"] = level_times(torch, levels, reps)
+    print("mimc 2^20 by level, [hashes, device ms, bound ms]: "
+          + json.dumps([[lv["n"], round(lv["ms"], 5), round(lv["bound_ms"], 5)]
+                        for lv in out["levels"]]), flush=True)
+    print(f"mimc 2^20 levels: {sum(lv['ms'] for lv in out['levels']):.4f} ms in all, bound "
+          f"{sum(lv['bound_ms'] for lv in out['levels']):.4f} ms", flush=True)
 
     # every level against the twins applied to the level below, in one twin
     # call over all 2^20 − 1 nodes: by induction from the leaves, the
@@ -697,6 +787,7 @@ def main() -> int:
         for name, (src, rep) in KERNELS.items()],
         "stages_s": trip["stages"], "launches_by_stage": trip["launches_by_stage"],
         "ntt_2_20": {k: v for k, v in nttp.items() if k != "launches"},
+        "mimc_hash2_checks": {k: kern["mimc_hash2"][k] for k in ("cases", "sass")},
         "mimc_2_20": {k: v for k, v in mimcp.items() if k != "launches"},
         "launches_by_phase": {"depth16": trip["launches"], "ntt_2_20": nttp["launches"],
                               "mimc_2_20": mimcp["launches"]},

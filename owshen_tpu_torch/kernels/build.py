@@ -87,7 +87,7 @@ def _field_consts_words() -> np.ndarray:
 
     words = []
     for p in (P_FR, P_FQ):
-        words += words_le(p) + [(-pow(p, -1, 1 << 32)) % (1 << 32)]
+        words += words_le(p) + [(-pow(p, -1, 1 << 32)) % (1 << 32)] + words_le(2 * p)
     return np.asarray(words, np.uint32)
 
 
@@ -117,6 +117,12 @@ def _mimc_consts_words():
     return np.ascontiguousarray(c), len(cts)
 
 
+def library_path(name: str) -> Path:
+    """Where the library built from csrc/<name>.cu for these sources and
+    flags lives."""
+    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+
+
 class _Libraries:
     """The loaded kernel libraries of this process (built on first use)."""
 
@@ -133,7 +139,7 @@ class _Libraries:
 
     def _build_and_load(self) -> None:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        targets = {n: BUILD_DIR / f"lib{n}-{_digest(n)}.so" for n in SOURCES}
+        targets = {n: library_path(n) for n in SOURCES}
         procs = {}
         for name, so in targets.items():
             if so.exists():

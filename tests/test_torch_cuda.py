@@ -79,6 +79,13 @@ def test_k5_k6_k7_match_plain(card):
     a = FR.encode(rand_ints(rng, FR.p, 300), device=card)
     b = FR.encode(rand_ints(rng, FR.p, 300)[::-1], device=card)
     assert torch.equal(mimc.mimc_hash2(a, b), mimc.mimc_hash2_plain(a, b))
+    for n in (1, 33):                            # a partial block, a single hash
+        assert torch.equal(mimc.mimc_hash2(a[:n], b[-n:]), mimc.mimc_hash2_plain(a[:n], b[-n:]))
+    edges = [0, 1, FR.p - 1]                     # every pair, and left == right
+    same = rand_ints(rng, FR.p, 8)[2:]           # p − 1, p − 2 and four random
+    el = FR.encode([x for x in edges for _ in edges] + same, device=card)
+    er = FR.encode(edges * 3 + same, device=card)
+    assert torch.equal(mimc.mimc_hash2(el, er), mimc.mimc_hash2_plain(el, er))
     for inverse in (False, True):
         tw = col_twiddles(8, inverse, card)
         assert torch.equal(ntt.ntt_cols(x, tw), ntt.ntt_cols_plain(x, tw))
