@@ -7,19 +7,25 @@
 2. Builds the hand-written kernels (one nvcc per source, in parallel) and
    holds each one against its plain PyTorch twin on the card, at the shape
    its path gives it, including the edge values 0, 1, p − 1, the identity,
-   P + P and P + (−P); equality is exact.  K1–K4 at the depth-16 shapes,
+   P + P and P + (−P); equality is exact.  K1–K4 at the depth-16 shapes
+   (K2 also at widths 1, 127, 129 and 81,919, K4 at 1, 31, 4095 and 4097),
    K5 on the last stage of the 2^20 NTT, K6 at 2^16 hashes (and at N = 1,
    33, 1000 and on edge rows), K7 on the first level of the 2^20 fused NTT.
    Times kernel and twin (profiler device time, CUDA events), computes each
-   kernel's bound from its inputs, and counts K6's IMAD instructions in the
-   built library's SASS (cuobjdump).
+   kernel's bound from its inputs, times K1 at one element (the card's
+   floor per launch) and K4 at one hash (its chain's latency), prints each
+   kernel's registers, spills and shared memory (ptxas) and counts the IMAD
+   instructions of K2, K4 and K6 in the built libraries' SASS (cuobjdump).
 3. Drives the depth-16 pool round trip through the entry points a user
    calls: PrivacyPool(depth=16) with a real setup of the 4431-constraint
    withdraw circuit, a deposit of 4096 commitments, the root against the
    host oracle, prove_withdraw, withdraw (pairing verify), the voucher,
    redeem, and the rejection of a second redeem and of a tampered public
    input.  Every kernel's launch count is zeroed just before and read just
-   after; K1–K5 must each be > 0.
+   after; K1–K5 must each be > 0.  The launches of K1 and K2 are counted
+   by width, and each kernel is timed at each width the path used, so that
+   its loss (launches × (device ms − bound)) is summed width by width.
+   The warm prove's device-busy time is read from the profiler's timeline.
 4. Proves the depth-2 withdraw statement below with fixed seeds and holds
    the proof's digest against DEPTH2_DIGEST, which tests/test_torch_pool.py
    computes from the JAX package and asserts.
@@ -27,13 +33,15 @@
    the fused K7 path give equal transforms, the inverse of each returns the
    input, both equal the host oracle at 2^10, and the 2^12 transform of a
    seeded input matches NTT_DIGEST; launch counts zeroed before, K5 and K7
-   must be > 0.
+   must be > 0; the fused transform's device-busy time must be > 0.
 6. The dense MiMC tree over 2^20 seeded leaves: build_levels (one K6 launch
    per level), every level against the plain twins applied to the level
    below (one twin call over all nodes, so the root is the twins' root), 1024
    authentication paths accepted and a tampered leaf rejected, and the root
    over 2^10 seeded leaves against MIMC_DIGEST; K6 must be > 0.  Then each
-   level's K6 launch is timed alone (CUDA events) beside its bound.
+   level's K6 launch is timed alone (CUDA events) beside its bound, and the
+   device-busy time of one tree (profiler timeline) must agree with the sum
+   of the levels' times within 5 %.
 7. Prints the `kernels` JSON line, then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device, when the
@@ -44,9 +52,12 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import random
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 # ---------------------------------------------------------------------------
@@ -149,6 +160,8 @@ PER_ITEM = {
     "poseidon_hash2": (3 * ROW, 162 * SQR_OPS + 666 * MUL_OPS + 585 * ADD_OPS),
     "mimc_hash2": (3 * ROW, MIMC_OPS),
 }
+# the kernels whose loss on the depth-16 path is summed width by width
+LOSS_KERNELS = ("mont_mul", "mod_add", "mod_sub", "g1_add")
 # the kernels the depth-16 round trip must launch (K6 and K7 run only in
 # their own phases)
 DEPTH16_KERNELS = ("mont_mul", "mod_add", "mod_sub", "g1_add", "g1_double",
@@ -197,47 +210,82 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_time(evt, prefix: str) -> float:
-    """An averaged profiler event's (self) device time in µs, under the
-    attribute name of this torch version."""
-    value = getattr(evt, f"{prefix}device_time_total", None)
-    return value if value is not None else getattr(evt, f"{prefix}cuda_time_total", 0)
+DEVICE_SPANS = ("kernel", "gpu_memcpy", "gpu_memset")   # Chrome trace categories
+SETTLE_S = 0.05     # idle host time around the profiled calls, inside the session
+SPINS = 16          # spin kernels that open each session (see traced)
+TRIES = 3           # profiler sessions before a timeline that lost launches fails
 
 
-def device_ms(torch, fn, reps: int, kernel: str):
-    """Device milliseconds per launch of the kernel whose name contains
-    `kernel`, from the profiler's CUDA activity; None when the profiler
-    records no device time for it."""
+def traced(torch, fn, reps: int = 1) -> tuple[float, list]:
+    """(wall seconds, device spans) of `reps` calls of fn under the
+    profiler: the kernel, copy and memset events of the card's timeline,
+    read from the profiler's Chrome trace.  Late in a run, the first few
+    kernel records of a session can be missing from its trace (up to 8 of
+    them, on an H100 with torch 2.11), so each session opens with SPINS
+    tiny spin kernels that take that loss and are left out of the spans.
+    The session stays open SETTLE_S before and after the calls, so that
+    device events near its ends fall inside it."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(SPINS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        time.sleep(SETTLE_S)
+        t = time.time()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for evt in prof.key_averages():
-        if kernel in evt.key:
-            total_us += device_time(evt, "")
-            count += evt.count
-    return total_us / 1e3 / count if count and total_us > 0 else None
+        wall = time.time() - t
+        time.sleep(SETTLE_S)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    return wall, [e for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_SPANS
+                  and "spin_kernel" not in e["name"]]
+
+
+def device_ms(torch, fn, reps: int, kernel: str) -> float:
+    """Device milliseconds per launch of the kernel whose name contains
+    `kernel` (fn launches it once), the mean over the `reps` launches on the
+    profiler's timeline.  A session whose timeline lost some of them is
+    taken again; after TRIES the run fails."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(TRIES):
+        _, events = traced(torch, fn, reps)
+        durs = [e["dur"] for e in events if kernel in e["name"]]
+        if len(durs) == reps:
+            return sum(durs) / reps / 1e3
+        print(f"device_ms: {len(durs)} of {reps} launches of {kernel} on the timeline; "
+              f"profiling again", flush=True)
+    fail(f"the profiler's timeline lost launches of {kernel} in {TRIES} tries")
 
 
 def device_busy(torch, fn) -> tuple[float, float]:
-    """(wall seconds, device-busy seconds) of one call of fn under the
-    profiler: the busy time sums every kernel's and copy's own device time
-    (one stream, so they do not overlap)."""
-    from torch.profiler import ProfilerActivity, profile
+    """(wall seconds, device-busy seconds) of one call of fn: the busy time
+    is the union of the device spans on the profiler's timeline.  Every
+    launch the port's wrappers count during fn must be among them: a
+    session that lost some is taken again; after TRIES the run fails."""
+    from owshen_tpu_torch import kernels
 
-    torch.cuda.synchronize()
-    t = time.time()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall = time.time() - t
-    busy_us = sum(device_time(e, "self_") for e in prof.key_averages())
-    return wall, busy_us / 1e6
+    for _ in range(TRIES):
+        before = kernels.launch_counts()
+        wall, events = traced(torch, fn)
+        launched = {k: n - before[k] for k, n in kernels.launch_counts().items() if n > before[k]}
+        seen = {k: sum(KERNEL_SYMBOLS[k] in e["name"] for e in events) for k in launched}
+        if all(seen[k] >= n for k, n in launched.items()):
+            busy_us, end = 0.0, float("-inf")
+            for lo, hi in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+                busy_us += max(0.0, hi - max(lo, end))
+                end = max(end, hi)
+            return wall, busy_us / 1e6
+        print(f"device_busy: the timeline holds {seen} of the launches {launched}; "
+              f"profiling again", flush=True)
+    fail(f"the profiler's timeline lost kernel launches in {TRIES} tries")
 
 
 # ---------------------------------------------------------------------------
@@ -276,12 +324,41 @@ def edge_points(torch, gen, n: int, dev):
     return p, q, want, want_dbl
 
 
-def mimc_sass(build) -> dict:
-    """IMAD instructions of mimc2_kernel in the built library's SASS, by
-    opcode, and the multiply-add results they give (an IMAD.WIDE gives two:
-    the low and the high word).  The kernel holds one copy of the round (two
-    squarings, two products) inside its loop, so the total is one round's
-    plus a few address computations."""
+def kernel_of(mangled: str) -> str:
+    """The KERNEL_SYMBOLS name of a mangled kernel symbol (itself if none)."""
+    for sym in KERNEL_SYMBOLS.values():
+        base, _, arg = sym.partition("<")
+        if base in mangled and (not arg or f"ILi{arg.rstrip('>')}E" in mangled):
+            return sym
+    return mangled
+
+
+def ptxas_usage(logs: dict) -> dict:
+    """Registers, spill bytes and static shared memory of each kernel, from
+    the `-Xptxas -v` logs of the build."""
+    usage, name = {}, None
+    for log in logs.values():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = kernel_of(m.group(1))
+                usage[name] = {}
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and name:
+                usage[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                usage[name]["registers"] = int(m[1])
+                smem = re.search(r"(\d+) bytes smem", line)
+                usage[name]["smem_bytes"] = int(smem[1]) if smem else 0
+    return usage
+
+
+def sass_imad(build, lib: str, symbol: str) -> dict:
+    """IMAD-family instructions of one kernel in the built library's SASS,
+    by opcode, and the multiply-add results they give (an IMAD.WIDE gives
+    two: the low and the high word).  The count is static: a loop body
+    counts once."""
     import shutil
     from pathlib import Path
 
@@ -289,19 +366,18 @@ def mimc_sass(build) -> dict:
     tool = str(tool) if tool.is_file() else shutil.which("cuobjdump")
     if tool is None:
         fail("cuobjdump not found beside nvcc")
-    sass = subprocess.run([tool, "-sass", str(build.library_path("mimc"))],
+    sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
                           capture_output=True, text=True, check=True).stdout
     counts, inside = {}, False
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = "mimc2_kernel" in line
+            inside = symbol in line
         elif inside and "IMAD" in line:
             op = next(w for w in line.replace(";", " ").split() if w.startswith("IMAD"))
             counts[op] = counts.get(op, 0) + 1
     total = sum(counts.values())
     results = sum(n * (2 if ".WIDE" in op else 1) for op, n in counts.items())
-    print(f"mimc2_kernel SASS: {total} IMAD per round {json.dumps(counts)}, {results} "
-          f"multiply-add results; the bound counts {(2 * SQR_OPS + 2 * MUL_OPS) // 2}",
+    print(f"{symbol} SASS: {total} IMAD {json.dumps(counts)}, {results} multiply-add results",
           flush=True)
     return {"imad": total, "multiply_adds": results, "by_opcode": counts}
 
@@ -315,13 +391,12 @@ def check_kernels(torch, dev) -> dict:
     t0 = time.time()
     build.library("field_ops")          # builds every source, in parallel
     print(f"build: {time.time() - t0:.1f} s", flush=True)
-    for name, log in build.LIBRARIES.logs.items():
-        regs = [ln.split("info    :")[-1].strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"ptxas {name}: {'; '.join(regs)}", flush=True)
+    usage = ptxas_usage(build.LIBRARIES.logs)
+    for name, use in usage.items():
+        print(f"ptxas {name}: {json.dumps(use)}", flush=True)
 
     gen = torch.Generator().manual_seed(7)
-    results = {}
+    results = {"ptxas": usage}
 
     def record(name, n, kernel, plain, err, reps, work=None):
         """Times kernel and twin; `work` is (bytes, operations) of one call,
@@ -330,17 +405,14 @@ def check_kernels(torch, dev) -> dict:
             fail(f"{name}: kernel disagrees with its plain version (max |diff| {err})")
         call_ms = time_ms(torch, kernel, reps)
         ms = device_ms(torch, kernel, reps, KERNEL_SYMBOLS[name])
-        timing = "profiler"
-        if ms is None:
-            ms, timing = call_ms, "events"
         plain_ms = time_ms(torch, plain, max(1, reps // 20))
         if work is None:
             work = (n * PER_ITEM[name][0], n * PER_ITEM[name][1])
         b_ms, b_by = bound(*work)
-        results[name] = {"n": n, "ms": ms, "call_ms": call_ms, "timing": timing,
+        results[name] = {"n": n, "ms": ms, "call_ms": call_ms,
                          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                          "max_abs_err": err}
-        print(f"{name}: n={n} ok, {ms:.4f} ms on the device ({timing}), "
+        print(f"{name}: n={n} ok, {ms:.4f} ms on the device (profiler), "
               f"{call_ms:.4f} ms per call; plain {plain_ms:.3f} ms; "
               f"bound {b_ms:.4f} ms by {b_by}", flush=True)
 
@@ -357,14 +429,32 @@ def check_kernels(torch, dev) -> dict:
             elif err != 0:
                 fail(f"{name}[{field}]: kernel disagrees with its plain version")
         print(f"K1 over {field}: equal", flush=True)
+    # one element: the card's fixed cost of a launch, K1's floor
+    a1, b1 = a[8:9], b[8:9]
+    for name, k in (("mont_mul", field_ops.mont_mul), ("mod_add", field_ops.mod_add)):
+        results[name]["n1_ms"] = device_ms(torch, lambda: k(a1, b1, "fq"), 200,
+                                           KERNEL_SYMBOLS[name])
+        print(f"{name}: n=1 {results[name]['n1_ms']:.5f} ms on the device", flush=True)
 
     n2 = 81920                          # a fold level at depth 16: 5 sets × 16,384
     p, q, want, want_dbl = edge_points(torch, gen, n2, dev)
     got = g1.g1_add(p, q)
-    err = max_abs_err(torch, got, g1.g1_add_plain(p, q))
+    twin = g1.g1_add_plain(p, q)
+    err = max_abs_err(torch, got, twin)
     if bn254.g1_decode_many(tuple(c[:64] for c in got)) != want:
         fail("g1_add: wrong sums on real points")
+    cases = {}
+    for n in (1, 127, 129, n2 - 1):     # partial blocks; the edge rows lead each
+        cases[f"n={n}"] = max_abs_err(torch, g1.g1_add(tuple(c[:n] for c in p),
+                                                       tuple(c[:n] for c in q)),
+                                      tuple(c[:n] for c in twin))
+    print("g1_add max |diff| by case: " + json.dumps(cases), flush=True)
+    for case, case_err in cases.items():
+        if case_err != 0:
+            fail(f"g1_add ({case}): kernel disagrees with its plain version")
     record("g1_add", n2, lambda: g1.g1_add(p, q), lambda: g1.g1_add_plain(p, q), err, 50)
+    results["g1_add"]["cases"] = cases
+    results["g1_add"]["sass"] = sass_imad(build, "g1", "g1_add_kernel")
 
     n3 = 8192
     p3 = tuple(c[:n3] for c in p)
@@ -375,12 +465,32 @@ def check_kernels(torch, dev) -> dict:
     record("g1_double", n3, lambda: g1.g1_double(p3), lambda: g1.g1_double_plain(p3),
            err, 100)
 
+    # K4 at the deposit's 4096 hashes; first rows: every pair of 0, 1, p − 1,
+    # p − 2; twin over 4097 rows once, the kernel at each width against it
     n4 = 4096
-    left, right = rand_field(torch, gen, P_FR, n4, dev), rand_field(torch, gen, P_FR, n4, dev)
-    err = max_abs_err(torch, poseidon.poseidon_hash2(left, right),
-                      poseidon.poseidon_hash2_plain(left, right))
+    left, right = (rand_field(torch, gen, P_FR, n4 + 1, dev),
+                   rand_field(torch, gen, P_FR, n4 + 1, dev))
+    pick = torch.arange(16, device=dev)
+    left[:16], right[:16] = left[pick // 4], left[pick % 4]
+    twin = poseidon.poseidon_hash2_plain(left, right)
+    cases = {f"n={n}": max_abs_err(torch, poseidon.poseidon_hash2(left[:n], right[:n]), twin[:n])
+             for n in (1, 31, n4 - 1, n4 + 1)}
+    print("poseidon_hash2 max |diff| by case: " + json.dumps(cases), flush=True)
+    for case, case_err in cases.items():
+        if case_err != 0:
+            fail(f"poseidon_hash2 ({case}): kernel disagrees with its plain version")
+    left, right = left[:n4], right[:n4]
+    err = max_abs_err(torch, poseidon.poseidon_hash2(left, right), twin[:n4])
     record("poseidon_hash2", n4, lambda: poseidon.poseidon_hash2(left, right),
            lambda: poseidon.poseidon_hash2_plain(left, right), err, 20)
+    results["poseidon_hash2"]["cases"] = cases
+    # one hash: the latency of the kernel's chain, alone on the card
+    results["poseidon_hash2"]["n1_ms"] = device_ms(
+        torch, lambda: poseidon.poseidon_hash2(left[:1], right[:1]), 20,
+        KERNEL_SYMBOLS["poseidon_hash2"])
+    print(f"poseidon_hash2: n=1 {results['poseidon_hash2']['n1_ms']:.4f} ms on the device",
+          flush=True)
+    results["poseidon_hash2"]["sass"] = sass_imad(build, "poseidon", "poseidon2_kernel")
 
     # K5: the last stage of the 2^20 NTT (2^19 butterflies), where twiddle j
     # is table row j, so the edge rows meet in a, b and w; in place, so the
@@ -419,7 +529,9 @@ def check_kernels(torch, dev) -> dict:
     record("mimc_hash2", n6, lambda: mimc.mimc_hash2(left, right),
            lambda: mimc.mimc_hash2_plain(left, right), err, 20)
     results["mimc_hash2"]["cases"] = cases
-    results["mimc_hash2"]["sass"] = mimc_sass(build)
+    results["mimc_hash2"]["sass"] = sass_imad(build, "mimc", "mimc2_kernel")
+    print(f"  (mimc2_kernel holds one round in its loop; the bound counts "
+          f"{(2 * SQR_OPS + 2 * MUL_OPS) // 2} multiply-adds a round)", flush=True)
 
     # K7: the first level of the 2^20 fused NTT, 2^10 columns of 2^10 points
     la = 10
@@ -507,6 +619,7 @@ def round_trip_depth16(torch, dev) -> dict:
     print("d16 tampered public input rejected", flush=True)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
+    widths = kernels.launch_widths()
 
     builder = pool_builder(pool, note, real_at, recipient)
     t = time.time()
@@ -531,7 +644,44 @@ def round_trip_depth16(torch, dev) -> dict:
     for name in DEPTH16_KERNELS:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the depth-16 path")
-    return {"stages": stages, "launches": counts, "launches_by_stage": per_stage}
+    print("d16 K1/K2 launches by width, {width: [launches, items]}: "
+          + json.dumps({k: widths[k] for k in LOSS_KERNELS}), flush=True)
+    return {"stages": stages, "launches": counts, "launches_by_stage": per_stage,
+            "widths": widths}
+
+
+def width_losses(torch, dev, widths) -> dict:
+    """K1's and K2's loss on the depth-16 path, width by width: each width
+    bucket's kernel timed on the card (profiler) at the bucket's mean width,
+    beside its bound; loss = launches × (device ms − bound)."""
+    from owshen_tpu_torch.kernels import field_ops, g1
+    from owshen_tpu_torch.oracle.field import P_FQ
+
+    gen = torch.Generator().manual_seed(16)
+    widest = max(w for name in LOSS_KERNELS for w in widths[name])
+    a, b = (rand_field(torch, gen, P_FQ, widest, dev) for _ in range(2))
+    p, q = (tuple(rand_field(torch, gen, P_FQ, widest, dev) for _ in range(3)) for _ in range(2))
+    calls = {
+        "mont_mul": lambda n: field_ops.mont_mul(a[:n], b[:n], "fq"),
+        "mod_add": lambda n: field_ops.mod_add(a[:n], b[:n], "fq"),
+        "mod_sub": lambda n: field_ops.mod_sub(a[:n], b[:n], "fq"),
+        "g1_add": lambda n: g1.g1_add(tuple(c[:n] for c in p), tuple(c[:n] for c in q)),
+    }
+    out = {}
+    for name in LOSS_KERNELS:
+        rows = []
+        for width, (count, items) in widths[name].items():
+            n = max(1, round(items / count))
+            ms = device_ms(torch, lambda: calls[name](n), 20, KERNEL_SYMBOLS[name])
+            b_ms, _ = bound(n * PER_ITEM[name][0], n * PER_ITEM[name][1])
+            rows.append({"width": width, "launches": count, "n": n, "ms": ms, "bound_ms": b_ms,
+                         "loss_ms": count * max(0.0, ms - b_ms)})
+        out[name] = {"loss_ms": sum(r["loss_ms"] for r in rows), "by_width": rows}
+        print(f"{name} on the depth-16 path: loss {out[name]['loss_ms']:.3f} ms; [width, "
+              f"launches, mean n, device ms, bound ms]: "
+              + json.dumps([[r["width"], r["launches"], r["n"], round(r["ms"], 5),
+                             round(r["bound_ms"], 5)] for r in rows]), flush=True)
+    return out
 
 
 def pool_builder(pool, note, index, recipient):
@@ -614,6 +764,8 @@ def ntt_phase(torch, dev) -> dict:
         out[f"{route}_s"] = (time.time() - t) / reps
         wall, busy = device_busy(torch, fn)
         out[f"{route}_profiled_s"], out[f"{route}_busy_s"] = wall, busy
+        if busy <= 0:
+            fail(f"NTT 2^20 ({route}): the profiler's timeline shows no device time")
         print(f"ntt 2^20 {route}: {out[f'{route}_s']:.5f} s per transform; under the "
               f"profiler {wall:.5f} s, device busy {busy:.5f} s", flush=True)
 
@@ -720,8 +872,13 @@ def mimc_phase(torch, dev) -> dict:
     print("mimc 2^20 by level, [hashes, device ms, bound ms]: "
           + json.dumps([[lv["n"], round(lv["ms"], 5), round(lv["bound_ms"], 5)]
                         for lv in out["levels"]]), flush=True)
-    print(f"mimc 2^20 levels: {sum(lv['ms'] for lv in out['levels']):.4f} ms in all, bound "
-          f"{sum(lv['bound_ms'] for lv in out['levels']):.4f} ms", flush=True)
+    events_ms = sum(lv["ms"] for lv in out["levels"])
+    print(f"mimc 2^20 levels: {events_ms:.4f} ms in all, bound "
+          f"{sum(lv['bound_ms'] for lv in out['levels']):.4f} ms; device busy in one profiled "
+          f"tree {busy * 1e3:.4f} ms", flush=True)
+    if abs(busy * 1e3 - events_ms) > 0.05 * events_ms:
+        fail(f"MiMC 2^20: device-busy time {busy * 1e3:.4f} ms is not within 5 % of the "
+             f"levels' CUDA-event times ({events_ms:.4f} ms)")
 
     # every level against the twins applied to the level below, in one twin
     # call over all 2^20 − 1 nodes: by induction from the leaves, the
@@ -746,6 +903,9 @@ def mimc_phase(torch, dev) -> dict:
 
 
 def main() -> int:
+    # keep CUPTI set up between profiler sessions (Kineto tears it down
+    # after each by default): the timeline checks were verified this way
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     import torch
 
     if not torch.cuda.is_available():
@@ -763,6 +923,7 @@ def main() -> int:
 
     kern = check_kernels(torch, dev)
     trip = round_trip_depth16(torch, dev)
+    losses = width_losses(torch, dev, trip["widths"])
 
     t = time.time()
     digest = depth2_digest(dev)
@@ -782,10 +943,15 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": kern[name]["max_abs_err"],
          "ms": kern[name]["ms"], "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"], "bound_by": kern[name]["bound_by"],
-         "library_ms": None, "n": kern[name]["n"], "call_ms": kern[name]["call_ms"],
-         "timing": kern[name]["timing"]}
+         "library_ms": None, "n": kern[name]["n"], "call_ms": kern[name]["call_ms"]}
         for name, (src, rep) in KERNELS.items()],
         "stages_s": trip["stages"], "launches_by_stage": trip["launches_by_stage"],
+        "launch_widths_depth16": {k: trip["widths"][k] for k in LOSS_KERNELS},
+        "width_losses": losses, "ptxas": kern["ptxas"],
+        "k1_n1_ms": {k: kern[k]["n1_ms"] for k in ("mont_mul", "mod_add")},
+        "poseidon_hash2_n1_ms": kern["poseidon_hash2"]["n1_ms"],
+        "kernel_checks": {k: {f: kern[k][f] for f in ("cases", "sass")}
+                          for k in ("g1_add", "poseidon_hash2")},
         "ntt_2_20": {k: v for k, v in nttp.items() if k != "launches"},
         "mimc_hash2_checks": {k: kern["mimc_hash2"][k] for k in ("cases", "sass")},
         "mimc_2_20": {k: v for k, v in mimcp.items() if k != "launches"},

@@ -3,6 +3,12 @@
 Environment overrides (optional):
     OWSHEN_CHAIN_ID=<int>            protocol chain id (default 918273, the
                                      reference's src/config.rs:2)
+    OWSHEN_PROVER_ENGINE=<str>       Groth16 prover MSM engine when `prove`
+                                     is given none: "fixed" (default; the
+                                     fixed-table engine, ops/msm_fixed.py),
+                                     "lane" or "sorted" (the reference's
+                                     Pippenger engines, not ported yet:
+                                     `prove` raises NotImplementedError)
     OWSHEN_FIXED_TABLE_MAX_GB=<num>  budget for the prover's fixed MSM
                                      tables on the card (default 40: half of
                                      an 80 GB H100, leaving room for the
@@ -26,6 +32,7 @@ import torch
 @dataclass(frozen=True)
 class Settings:
     chain_id: int
+    prover_engine: str
     fixed_table_max_gb: float
     ntt_fused_min_logn: int
 
@@ -34,6 +41,7 @@ class Settings:
 def settings() -> Settings:
     return Settings(
         chain_id=int(os.environ.get("OWSHEN_CHAIN_ID") or 918273),
+        prover_engine=os.environ.get("OWSHEN_PROVER_ENGINE", "fixed"),
         fixed_table_max_gb=float(os.environ.get("OWSHEN_FIXED_TABLE_MAX_GB") or 40),
         ntt_fused_min_logn=int(os.environ.get("OWSHEN_NTT_PALLAS_MIN_LOGN") or 31),
     )

@@ -234,13 +234,6 @@ class _FixedTables:
 def _fixed_tables(pk: ProvingKey) -> _FixedTables:
     fx = getattr(pk, "_fixed", None)
     if fx is None:
-        limit = settings().fixed_table_max_gb
-        need = _fixed_table_bytes(pk)
-        if need > limit * (1 << 30):
-            raise ValueError(
-                f"fixed prover tables need {need / (1 << 30):.1f} GiB, over the "
-                f"{limit} GiB budget (OWSHEN_FIXED_TABLE_MAX_GB); the Pippenger "
-                f"engines are not ported yet")
         fx = _FixedTables(pk)
         object.__setattr__(pk, "_fixed", fx)
     return fx
@@ -326,14 +319,45 @@ def _device_mats(mats, device):
                        for rids, idx, coeff in mat) for mat in mats)
 
 
+def _check_engine(pk: ProvingKey, mesh, engine: str | None) -> None:
+    """Raise for an engine the reference does not know (ValueError) and for
+    one the port cannot serve yet (NotImplementedError), before any work."""
+    if engine is None:
+        engine = settings().prover_engine
+    if engine not in ("fixed", "lane", "sorted"):
+        raise ValueError(f"unknown prover engine {engine!r}: expected fixed|lane|sorted")
+    if mesh is not None:
+        raise NotImplementedError(
+            "the multi-device prover (mesh) is not ported yet (ROADMAP queue 1 item 6)")
+    if engine != "fixed":
+        raise NotImplementedError(
+            f"the {engine!r} Pippenger engine is not ported yet (ROADMAP queue 1 item 2)")
+    limit = settings().fixed_table_max_gb
+    if getattr(pk, "_fixed", None) is None and _fixed_table_bytes(pk) > limit * (1 << 30):
+        raise NotImplementedError(
+            f"fixed prover tables need {_fixed_table_bytes(pk) / (1 << 30):.1f} GiB, over "
+            f"the {limit} GiB budget (OWSHEN_FIXED_TABLE_MAX_GB); the reference falls back "
+            f"to its 'sorted' engine there, which is not ported yet (ROADMAP queue 1 item 2)")
+
+
 def prove(pk: ProvingKey, builder: Builder, seed: bytes | None = None,
-          device=None) -> Proof:
+          msm_c: int = 8, msm_lanes: int = 1024, mesh=None,
+          engine: str | None = None, *, device=None) -> Proof:
     """Proof from a fully assigned builder, on `device` (the key's device;
-    CUDA unless asked otherwise).
+    CUDA unless asked otherwise).  The parameters before `device` are the
+    reference's, in its order.
 
     The randomizers (r, s) default to fresh `os.urandom` entropy: zero
     knowledge collapses if they are predictable.  Pass an explicit `seed`
-    only for reproducible tests."""
+    only for reproducible tests.
+
+    engine: "fixed" (the fixed-table engine), "lane" or "sorted"; resolved
+    from OWSHEN_PROVER_ENGINE when None.  Only "fixed" is ported: the
+    others, a `mesh`, and fixed tables over OWSHEN_FIXED_TABLE_MAX_GB (which
+    the reference sends to "sorted") raise NotImplementedError.  `msm_c` and
+    `msm_lanes` tune the Pippenger engines; the fixed engine ignores them,
+    as in the reference."""
+    _check_engine(pk, mesh, engine)
     dev = resolve_device(device)
     if pk.device != dev:
         raise ValueError(f"proving key lives on {pk.device}, prove asked for {dev}")

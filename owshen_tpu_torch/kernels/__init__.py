@@ -2,7 +2,9 @@
 
 Every wrapper launches its kernel on CUDA tensors (or raises) and runs its
 plain PyTorch twin on CPU tensors; `launch_counts()` reads how often each
-kernel was launched and `reset_launches()` sets the counts to zero."""
+kernel was launched, `launch_widths()` how often and over how many items
+at each width (bucketed by the power of two at or above it), and
+`reset_launches()` sets both to zero."""
 
 from __future__ import annotations
 
@@ -23,8 +25,13 @@ WRAPPERS = {
 
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
-        fn.launches = 0
+        fn.launches, fn.widths = 0, {}
 
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def launch_widths() -> dict[str, dict[int, list[int]]]:
+    return {name: {w: list(v) for w, v in sorted(fn.widths.items())}
+            for name, fn in WRAPPERS.items()}

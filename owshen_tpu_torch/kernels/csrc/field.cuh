@@ -18,9 +18,10 @@
 // Constants: kField[0] = Fr, kField[1] = Fq, uploaded once per library by
 // field_consts_upload() from the Python side (one source of truth for p).
 //
-// The second half of this file is a lazy product for the hash kernels
-// (fmul_lazy, fsqr_lazy, fadd_lazy, fcanon): values stay in [0, 2p) and are
-// made canonical once, where a result is stored.
+// The second half of this file is a lazy arithmetic for the hash kernels
+// and the G1 add (fmul_lazy, fsqr_lazy, fadd_lazy, fsub_lazy, fmul9_lazy,
+// fcanon): values stay in [0, 2p) and are made canonical once, where a
+// result is stored.
 #pragma once
 
 #include <cstdint>
@@ -165,9 +166,9 @@ __device__ __forceinline__ void fmul9(uint32_t r[8], const uint32_t x[8],
 }
 
 // ---------------------------------------------------------------------------
-// Lazy Montgomery arithmetic on carry chains (the hash kernels)
+// Lazy Montgomery arithmetic on carry chains (K2, K4, K6)
 //
-// BN254's p < 2^254, so 4p < R = 2^256.  For a, b < 2p, Montgomery's
+// BN254's Fr and Fq moduli are both below 2^254, so 4p < R = 2^256.  For a, b < 2p, Montgomery's
 // (ab + mp)/R with m < R is < 4p²/R + p < 2p: a product of two values in
 // [0, 2p) lands in [0, 2p) without a final subtraction.  fadd_lazy keeps a
 // sum in [0, 2p) by one conditional subtraction of 2p, and fcanon maps
@@ -403,6 +404,33 @@ __device__ __forceinline__ void fadd_lazy(uint32_t r[8], const uint32_t a[8],
   const uint32_t borrow = subc(0, 0);   // 0xFFFFFFFF when s < 2p
 #pragma unroll
   for (int j = 0; j < 8; ++j) r[j] = borrow ? s[j] : d[j];
+}
+
+// r = a − b, lazy: a, b < 2p -> r < 2p.  When a < b the difference wraps
+// below 0 and 2p is added back: a − b + 2p lies in (0, 2p), and the carry
+// out of 2^256 that the wrap borrowed is dropped.
+__device__ __forceinline__ void fsub_lazy(uint32_t r[8], const uint32_t a[8],
+                                          const uint32_t b[8], const FieldConsts& F) {
+  uint32_t d[8];
+  d[0] = sub_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < 8; ++j) d[j] = subc_cc(a[j], b[j]);
+  const uint32_t borrow = subc(0, 0);   // 0xFFFFFFFF when a < b
+  r[0] = add_cc(d[0], F.p2[0] & borrow);
+#pragma unroll
+  for (int j = 1; j < 7; ++j) r[j] = addc_cc(d[j], F.p2[j] & borrow);
+  r[7] = addc(d[7], F.p2[7] & borrow);
+}
+
+// r = 9·x, lazy: x < 2p -> r < 2p.  9·2p exceeds 2^256, so it is three
+// doublings and an add, each brought back below 2p (b3 = 9 on BN254 G1)
+__device__ __forceinline__ void fmul9_lazy(uint32_t r[8], const uint32_t x[8],
+                                           const FieldConsts& F) {
+  uint32_t t[8];
+  fadd_lazy(t, x, x, F);
+  fadd_lazy(t, t, t, F);
+  fadd_lazy(t, t, t, F);
+  fadd_lazy(r, t, x, F);
 }
 
 // r = a mod p for a < 2p: the canonical value

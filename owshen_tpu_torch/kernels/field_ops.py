@@ -5,7 +5,8 @@ little-endian limbs, canonical values < p) that broadcast against each
 other, and return the canonical result.  On a CUDA tensor each launches
 csrc/field_ops.cu (one thread per element) or raises; on a CPU tensor it
 runs the plain PyTorch twin in this module, which the tests compare with
-the JAX package.  Each wrapper counts its kernel launches in `.launches`.
+the JAX package.  Each wrapper counts its kernel launches in `.launches`,
+and in `.widths` by width (`count_launch`).
 
 The plain twins work limb-major on int64 (16, N) and run on any device.
 The Montgomery product scans the multiplier in eight 32-bit words: each
@@ -185,6 +186,15 @@ def kernel_operand(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def count_launch(wrapper, n: int) -> None:
+    """Count one launch of `wrapper`'s kernel over n items: `.launches`, and
+    `.widths[w] = [launches, items]` for the power of two w at or above n."""
+    wrapper.launches += 1
+    bucket = wrapper.widths.setdefault(1 << max(0, n - 1).bit_length(), [0, 0])
+    bucket[0] += 1
+    bucket[1] += n
+
+
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -208,7 +218,7 @@ def _launch_binary(entry: str, wrapper, a, b, field: str) -> torch.Tensor:
                              n, steps[0], steps[1], FIELD_INDEX[field],
                              stream_handle(a.device))
     build.check(rc, entry)
-    wrapper.launches += 1
+    count_launch(wrapper, n)
     return out.reshape(shape)
 
 
@@ -233,6 +243,5 @@ def mod_sub(a: torch.Tensor, b: torch.Tensor, field: str) -> torch.Tensor:
     return _launch_binary("field_sub_launch", mod_sub, a, b, field)
 
 
-mont_mul.launches = 0
-mod_add.launches = 0
-mod_sub.launches = 0
+for _wrapper in (mont_mul, mod_add, mod_sub):
+    _wrapper.launches, _wrapper.widths = 0, {}

@@ -3,7 +3,7 @@
 Points are (X, Y, Z) tuples of int32[..., 16] Montgomery tensors; the
 identity is (0 : 1 : 0).  `g1_add` / `g1_double` launch csrc/g1.cu (one
 thread per point, any N) on CUDA tensors, or run their plain twins on CPU
-tensors.  Each wrapper counts its launches in `.launches`.
+tensors.  Each wrapper counts its launches in `.launches` and `.widths`.
 
 The plain twins follow Renes–Costello–Batina 2015 algorithms 7 and 9 for
 a = 0 in the operation order of the JAX package's
@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .field_ops import (add_lm, from_lm, kernel_operand, mul_lm, on_cpu,
+from .field_ops import (add_lm, count_launch, from_lm, kernel_operand, mul_lm, on_cpu,
                         PLAIN_CHUNK, plain_chunked, plain_consts, stream_handle, sub_lm, to_lm)
 
 
@@ -114,7 +114,7 @@ def _launch(entry: str, wrapper, coords):
     lib = build.library("g1")
     rc = getattr(lib, entry)(*(t.data_ptr() for t in ops + outs), n, stream_handle(dev))
     build.check(rc, entry)
-    wrapper.launches += 1
+    count_launch(wrapper, n)
     return tuple(o.reshape(shape) for o in outs)
 
 
@@ -132,5 +132,5 @@ def g1_double(p):
     return _launch("g1_double_launch", g1_double, p)
 
 
-g1_add.launches = 0
-g1_double.launches = 0
+for _wrapper in (g1_add, g1_double):
+    _wrapper.launches, _wrapper.widths = 0, {}

@@ -3,7 +3,7 @@
 `mimc_hash2(left, right)` takes int32[..., 16] Montgomery tensors and
 returns the MiMC Merkle node hash.  On CUDA tensors it launches
 csrc/mimc.cu (one thread per hash, any N), on CPU tensors it runs the plain
-twin below.  The wrapper counts its launches in `.launches`.
+twin below.  The wrapper counts its launches in `.launches` and `.widths`.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import torch
 
 from ..ops.constants import mimc7_constants
 from . import build
-from .field_ops import (MODULI, add_lm, from_lm, kernel_operand, mul_lm, on_cpu,
+from .field_ops import (MODULI, add_lm, count_launch, from_lm, kernel_operand, mul_lm, on_cpu,
                         plain_consts, stream_handle, to_lm)
 
 
@@ -64,8 +64,8 @@ def mimc_hash2(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     rc = build.library("mimc").mimc2_launch(lt.data_ptr(), rt.data_ptr(), out.data_ptr(), n,
                                             stream_handle(lt.device))
     build.check(rc, "mimc2_launch")
-    mimc_hash2.launches += 1
+    count_launch(mimc_hash2, n)
     return out.reshape(shape)
 
 
-mimc_hash2.launches = 0
+mimc_hash2.launches, mimc_hash2.widths = 0, {}

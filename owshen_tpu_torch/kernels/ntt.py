@@ -14,7 +14,7 @@ gather and fused column kernel) in one launch.
 
 On CUDA tensors each wrapper launches csrc/ntt.cu or raises; on CPU tensors
 it runs the plain twin in this module, which composes the int64 K1 twins.
-Each wrapper counts its launches in `.launches`.
+Each wrapper counts its launches in `.launches` and `.widths`.
 """
 
 from __future__ import annotations
@@ -24,8 +24,8 @@ import functools
 import torch
 
 from . import build
-from .field_ops import (FIELD_INDEX, L, kernel_operand, mod_add_plain, mod_sub_plain,
-                        mont_mul_plain, on_cpu, stream_handle)
+from .field_ops import (FIELD_INDEX, L, count_launch, kernel_operand, mod_add_plain,
+                        mod_sub_plain, mont_mul_plain, on_cpu, stream_handle)
 
 MAX_COLS_LOGN = 12   # a 2^12 column and its twiddles fill 192 KB of shared memory
 
@@ -95,7 +95,7 @@ def butterfly_stage(x: torch.Tensor, pows: torch.Tensor, log_m: int,
     rc = build.library("ntt").ntt_stage_launch(x.data_ptr(), p.data_ptr(), n, batch, log_m,
                                                FIELD_INDEX[field], stream_handle(x.device))
     build.check(rc, "ntt_stage_launch")
-    butterfly_stage.launches += 1
+    count_launch(butterfly_stage, (n // 2) * batch)
     return x
 
 
@@ -128,9 +128,9 @@ def ntt_cols(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     rc = build.library("ntt").ntt_cols_launch(xt.data_ptr(), t.data_ptr(), out.data_ptr(),
                                               log_n1, cols, stream_handle(x.device))
     build.check(rc, "ntt_cols_launch")
-    ntt_cols.launches += 1
+    count_launch(ntt_cols, cols)
     return out.view(x.shape)
 
 
-butterfly_stage.launches = 0
-ntt_cols.launches = 0
+for _wrapper in (butterfly_stage, ntt_cols):
+    _wrapper.launches, _wrapper.widths = 0, {}

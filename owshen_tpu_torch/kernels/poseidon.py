@@ -2,8 +2,9 @@
 
 `poseidon_hash2(left, right)` takes int32[..., 16] Montgomery tensors and
 returns state[0] of the permutation of (0, left, right).  On CUDA tensors
-it launches csrc/poseidon.cu (one thread per hash), on CPU tensors it runs
-the plain twin below.  The wrapper counts its launches in `.launches`.
+it launches csrc/poseidon.cu (three threads per hash, any N), on CPU
+tensors it runs the plain twin below.  The wrapper counts its launches in
+`.launches` and `.widths`.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from ..ops.constants import POSEIDON_RF, POSEIDON_RP, poseidon_params
 from . import build
-from .field_ops import (MODULI, add_lm, from_lm, kernel_operand, mul_lm, on_cpu,
+from .field_ops import (MODULI, add_lm, count_launch, from_lm, kernel_operand, mul_lm, on_cpu,
                         plain_consts, stream_handle, to_lm)
 
 
@@ -79,8 +80,8 @@ def poseidon_hash2(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     rc = lib.poseidon2_launch(lt.data_ptr(), rt.data_ptr(), out.data_ptr(), n,
                               stream_handle(lt.device))
     build.check(rc, "poseidon2_launch")
-    poseidon_hash2.launches += 1
+    count_launch(poseidon_hash2, n)
     return out.reshape(shape)
 
 
-poseidon_hash2.launches = 0
+poseidon_hash2.launches, poseidon_hash2.widths = 0, {}

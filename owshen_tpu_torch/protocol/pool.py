@@ -43,6 +43,13 @@ class Token:
     decimals: int = 18
     symbol: str = "ETH"
 
+    @property
+    def is_native(self) -> bool:
+        return self.address == 0
+
+
+NATIVE = Token()
+
 
 def _token_id(token) -> int:
     return token.address if isinstance(token, Token) else int(token)
@@ -205,11 +212,14 @@ class PrivacyPool:
     # ------------------------------------------------------------------
 
     def prove_withdraw(self, secret: int, salt: int, amount: int, index: int,
-                       recipient: int, token=0, seed: bytes | None = None
+                       recipient: int, msm_c: int = 8, msm_lanes: int = 256,
+                       token=0, *, seed: bytes | None = None
                        ) -> tuple[groth16.Proof, int, int]:
         """Build the witness from the live tree and prove membership on the
-        pool's device.  Returns (proof, root, nullifier).  `seed` fixes the
-        proof's randomizers (tests only)."""
+        pool's device.  Returns (proof, root, nullifier).  The parameters
+        before `seed` are the reference's, in its order; `msm_c` and
+        `msm_lanes` go to `groth16.prove`.  `seed` fixes the proof's
+        randomizers (tests only)."""
         sibs_dev, _bits = self.tree.path([index])
         sibs = FR.decode(sibs_dev[0])
         w = circuits.WithdrawWitness(secret=secret, salt=salt, amount=amount,
@@ -219,5 +229,6 @@ class PrivacyPool:
         if not b.check():
             raise PoolError("witness does not satisfy the circuit")
         with metrics.timer("pool.prove_withdraw"):
-            proof = groth16.prove(self.pk, b, seed=seed, device=self.device)
+            proof = groth16.prove(self.pk, b, seed=seed, msm_c=msm_c,
+                                  msm_lanes=msm_lanes, device=self.device)
         return proof, root, circuits.nullifier_of(secret, index)

@@ -75,5 +75,12 @@ class MetricsRegistry:
         with open(path, "a") as fh:
             fh.write(json.dumps(snap, default=float) + "\n")
 
+    def reset(self):
+        """Clear every counter, gauge and timer."""
+        with self._lock:
+            self._counters.clear()
+            self._gauges.clear()
+            self._timers.clear()
+
 
 metrics = MetricsRegistry()

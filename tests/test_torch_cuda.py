@@ -55,18 +55,26 @@ def test_k2_k3_match_plain(card):
     qs[2] = (ps[2][0], (-ps[2][1]) % FQ.p)       # P + (−P)
     tp, tq = bn254.g1_encode(ps, device=card), bn254.g1_encode(qs, device=card)
     got = g1.g1_add(tp, tq)
-    for x, y in zip(got, g1.g1_add_plain(tp, tq)):
+    twin = g1.g1_add_plain(tp, tq)
+    for x, y in zip(got, twin):
         assert torch.equal(x, y)
     assert bn254.g1_decode_many(got) == [ocurve.G1.add(p, q) for p, q in zip(ps, qs)]
+    for n in (1, 31, 129):                       # partial blocks
+        head = lambda pt: tuple(c[:n] for c in pt)  # noqa: E731
+        for x, y in zip(g1.g1_add(head(tp), head(tq)), head(twin)):
+            assert torch.equal(x, y)
     for x, y in zip(g1.g1_double(tp), g1.g1_double_plain(tp)):
         assert torch.equal(x, y)
 
 
 def test_k4_matches_plain(card):
     rng = np.random.default_rng(63)
-    a = FR.encode(rand_ints(rng, FR.p, 300), device=card)
-    b = FR.encode(rand_ints(rng, FR.p, 300)[::-1], device=card)
-    assert torch.equal(poseidon.poseidon_hash2(a, b), poseidon.poseidon_hash2_plain(a, b))
+    a = FR.encode(rand_ints(rng, FR.p, 4097), device=card)
+    b = FR.encode(rand_ints(rng, FR.p, 4097)[::-1], device=card)
+    b[:4] = a[:4]                                # (0, 0), (1, 1), (p − 1, p − 1), ...
+    twin = poseidon.poseidon_hash2_plain(a, b)
+    for n in (1, 31, 4095, 4096, 4097):          # the kernel's tails and the deposit's width
+        assert torch.equal(poseidon.poseidon_hash2(a[:n], b[:n]), twin[:n])
 
 
 def test_k5_k6_k7_match_plain(card):
