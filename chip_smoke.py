@@ -8,23 +8,27 @@
    holds each one against its plain PyTorch twin on the card, at the shape
    its path gives it, including the edge values 0, 1, p − 1, the identity,
    P + P and P + (−P); equality is exact.  K1–K4 at the depth-16 shapes
-   (K2 also at widths 1, 127, 129 and 81,919, K4 at 1, 31, 4095 and 4097),
+   (K2 also at widths 1, 127, 129 and 81,919, K4 at 1, 31, 4095 and 4097,
+   K1's G2 add and double at 1, 2, 63, 64, 65, 8192 and 2^18 points),
    K5 on the last stage of the 2^20 NTT, K6 at 2^16 hashes (and at N = 1,
    33, 1000 and on edge rows), K7 on the first level of the 2^20 fused NTT.
    Times kernel and twin (profiler device time, CUDA events), computes each
    kernel's bound from its inputs, times K1 at one element (the card's
    floor per launch) and K4 at one hash (its chain's latency), prints each
    kernel's registers, spills and shared memory (ptxas) and counts the IMAD
-   instructions of K2, K4 and K6 in the built libraries' SASS (cuobjdump).
+   instructions of K2, K4, K6 and the G2 add in the built libraries' SASS
+   (cuobjdump).  The G2 kernels are timed at 8192 points (the fixed-table
+   build) and 2^18 (the top level of the prover's G2 fold).
 3. Drives the depth-16 pool round trip through the entry points a user
    calls: PrivacyPool(depth=16) with a real setup of the 4431-constraint
    withdraw circuit, a deposit of 4096 commitments, the root against the
    host oracle, prove_withdraw, withdraw (pairing verify), the voucher,
    redeem, and the rejection of a second redeem and of a tampered public
    input.  Every kernel's launch count is zeroed just before and read just
-   after; K1–K5 must each be > 0.  The launches of K1 and K2 are counted
-   by width, and each kernel is timed at each width the path used, so that
-   its loss (launches × (device ms − bound)) is summed width by width.
+   after; K1–K5 and the G2 add and double must each be > 0.  The launches
+   of K1, K2 and the G2 add are counted by width, and each kernel is timed
+   at each width the path used, so that its loss (launches × (device ms −
+   bound)) is summed width by width.
    The warm prove's device-busy time is read from the profiler's timeline.
 4. Proves the depth-2 withdraw statement below with fixed seeds and holds
    the proof's digest against DEPTH2_DIGEST, which tests/test_torch_pool.py
@@ -127,6 +131,14 @@ ADD_OPS = 3 * 8             # add/sub with carry, subtract p, select: 8 words ea
 ROW = 64                    # bytes of one int32[16] field element
 BFLY_OPS = MUL_OPS + 2 * ADD_OPS
 MIMC_OPS = 364 * SQR_OPS + 364 * MUL_OPS + 368 * ADD_OPS    # x^7: 2 squares, 2 products
+# (Fq products, Fq adds and subtracts) per G2 point, the least work, which
+# the plain twins do (kernels/g2.py; tests/test_torch_g2.py checks the
+# counts): an Fq2 product is Karatsuba's 3 products and 5 adds, a square
+# (a0 + a1)(a0 − a1) and 2·a0a1, 2 products and 3 adds, the product by b3
+# 3 and 4, an Fq2 add 2 adds.  The add: 12 products, 2 by b3 and 19 Fq2
+# adds; the double: 6 products, 2 squares (Y², Z²), 1 by b3 and 9 Fq2 adds
+G2_ADD_WORK = (12 * 3 + 2 * 3, 12 * 5 + 2 * 4 + 19 * 2)
+G2_DOUBLE_WORK = (6 * 3 + 2 * 2 + 3, 6 * 5 + 2 * 3 + 4 + 9 * 2)
 
 KERNELS = {
     # name: (source, replaced TPU kernel)
@@ -140,6 +152,12 @@ KERNELS = {
                "owshen_tpu/pallas/field_kernels.py:641"),
     "g1_double": ("owshen_tpu_torch/kernels/csrc/g1.cu",
                   "owshen_tpu/pallas/field_kernels.py:655"),
+    # K1's G2 point operations: they replace the Fq2 arithmetic of the JAX
+    # package's G2 add and double, which XLA fuses
+    "g2_add": ("owshen_tpu_torch/kernels/csrc/g2.cu",
+               "owshen_tpu/curves/weierstrass.py:110"),
+    "g2_double": ("owshen_tpu_torch/kernels/csrc/g2.cu",
+                  "owshen_tpu/curves/weierstrass.py:152"),
     "poseidon_hash2": ("owshen_tpu_torch/kernels/csrc/poseidon.cu",
                        "owshen_tpu/pallas/field_kernels.py:388"),
     "ntt_butterfly": ("owshen_tpu_torch/kernels/csrc/ntt.cu",
@@ -156,21 +174,25 @@ PER_ITEM = {
     "mod_add": (3 * ROW, ADD_OPS),
     "mod_sub": (3 * ROW, ADD_OPS),
     "g1_add": (9 * ROW, 12 * MUL_OPS + 27 * ADD_OPS),
-    "g1_double": (6 * ROW, 8 * MUL_OPS + 20 * ADD_OPS),
+    "g1_double": (6 * ROW, 6 * MUL_OPS + 2 * SQR_OPS + 20 * ADD_OPS),   # Y², Z² squares
+    "g2_add": (18 * ROW, G2_ADD_WORK[0] * MUL_OPS + G2_ADD_WORK[1] * ADD_OPS),
+    "g2_double": (12 * ROW, G2_DOUBLE_WORK[0] * MUL_OPS + G2_DOUBLE_WORK[1] * ADD_OPS),
     "poseidon_hash2": (3 * ROW, 162 * SQR_OPS + 666 * MUL_OPS + 585 * ADD_OPS),
     "mimc_hash2": (3 * ROW, MIMC_OPS),
 }
 # the kernels whose loss on the depth-16 path is summed width by width
-LOSS_KERNELS = ("mont_mul", "mod_add", "mod_sub", "g1_add")
+LOSS_KERNELS = ("mont_mul", "mod_add", "mod_sub", "g1_add", "g2_add")
+WIDTH_KERNELS = LOSS_KERNELS + ("g2_double",)   # launches printed by width
 # the kernels the depth-16 round trip must launch (K6 and K7 run only in
 # their own phases)
-DEPTH16_KERNELS = ("mont_mul", "mod_add", "mod_sub", "g1_add", "g1_double",
-                   "poseidon_hash2", "ntt_butterfly")
+DEPTH16_KERNELS = ("mont_mul", "mod_add", "mod_sub", "g1_add", "g1_double", "g2_add",
+                   "g2_double", "poseidon_hash2", "ntt_butterfly")
 
 # device symbol of each kernel, as the profiler names it
 KERNEL_SYMBOLS = {"mont_mul": "field_op_kernel<0>", "mod_add": "field_op_kernel<1>",
                   "mod_sub": "field_op_kernel<2>", "g1_add": "g1_add_kernel",
-                  "g1_double": "g1_dbl_kernel", "poseidon_hash2": "poseidon2_kernel",
+                  "g1_double": "g1_dbl_kernel", "g2_add": "g2_add_kernel",
+                  "g2_double": "g2_dbl_kernel", "poseidon_hash2": "poseidon2_kernel",
                   "ntt_butterfly": "ntt_stage_kernel", "mimc_hash2": "mimc2_kernel",
                   "ntt_cols": "ntt_cols_kernel"}
 
@@ -302,25 +324,39 @@ def rand_field(torch, gen, p: int, n: int, dev):
     return x.to(dev)
 
 
-def edge_points(torch, gen, n: int, dev):
-    """n G1 inputs (p, q): real multiples of G with identities, P + P and
-    P + (−P) in the first rows, random canonical coordinates after."""
+def edge_pairs(curve, gen, ks):
+    """(p, q) pairs of points of the host oracle's `curve`: O + O, P + O,
+    O + Q, P + P and P + (−P) in the first five rows, the multiples ks·gen
+    paired with their neighbours in the others."""
+    ps = [curve.mul(gen, k) for k in ks]
+    qs = ps[1:] + ps[:1]
+    ps[0] = qs[0] = None                        # O + O
+    qs[1] = None                                # P + O
+    ps[2] = None                                # O + Q
+    qs[3] = ps[3]                               # P + P
+    qs[4] = (ps[4][0], curve.K.neg(ps[4][1]))   # P + (−P)
+    return ps, qs
+
+
+def edge_points(torch, gen, n: int, dev, group: str = "g1"):
+    """n inputs (p, q) of the G1 or G2 kernels: edge_pairs of the multiples
+    1 … 64 of the generator in the first 64 rows, random canonical
+    coordinates after; with the oracle's sums and doublings of the first 64."""
     from owshen_tpu_torch.curves import bn254
     from owshen_tpu_torch.oracle import curve as ocurve
     from owshen_tpu_torch.oracle.field import P_FQ
 
-    real = [ocurve.G1.mul(ocurve.G1_GEN, k) for k in range(1, 65)]
-    qs = real[1:] + real[:1]
-    real[0] = qs[0] = None                    # O + O
-    qs[1] = None                              # P + O
-    qs[2] = real[2]                           # P + P
-    qs[3] = (real[3][0], (-real[3][1]) % P_FQ)  # P + (−P)
-    head_p, head_q = bn254.g1_encode(real), bn254.g1_encode(qs)
-    tail = [rand_field(torch, gen, P_FQ, n - 64, "cpu") for _ in range(6)]
+    curve, point, encode, comps = {
+        "g1": (ocurve.G1, ocurve.G1_GEN, bn254.g1_encode, 1),
+        "g2": (ocurve.G2, ocurve.G2_GEN, bn254.g2_encode, 2)}[group]
+    real, qs = edge_pairs(curve, point, range(1, 65))
+    head_p, head_q = encode(real), encode(qs)
+    tail = [rand_field(torch, gen, P_FQ, comps * (n - 64), "cpu").view(n - 64, *head_p[0].shape[1:])
+            for _ in range(6)]
     p = tuple(torch.cat([h, t]).to(dev) for h, t in zip(head_p, tail[:3]))
     q = tuple(torch.cat([h, t]).to(dev) for h, t in zip(head_q, tail[3:]))
-    want = [ocurve.G1.add(a, b) for a, b in zip(real, qs)]
-    want_dbl = [ocurve.G1.add(a, a) for a in real]
+    want = [curve.add(a, b) for a, b in zip(real, qs)]
+    want_dbl = [curve.add(a, a) for a in real]
     return p, q, want, want_dbl
 
 
@@ -384,7 +420,7 @@ def sass_imad(build, lib: str, symbol: str) -> dict:
 
 def check_kernels(torch, dev) -> dict:
     from owshen_tpu_torch.curves import bn254
-    from owshen_tpu_torch.kernels import build, field_ops, g1, mimc, ntt, poseidon
+    from owshen_tpu_torch.kernels import build, field_ops, g1, g2, mimc, ntt, poseidon
     from owshen_tpu_torch.ops.ntt import col_twiddles
     from owshen_tpu_torch.oracle.field import P_FQ, P_FR
 
@@ -464,6 +500,35 @@ def check_kernels(torch, dev) -> dict:
         fail("g1_double: wrong doublings on real points")
     record("g1_double", n3, lambda: g1.g1_double(p3), lambda: g1.g1_double_plain(p3),
            err, 100)
+
+    # K1's G2 add and double: the edge pairs lead; checked at small N, at
+    # the fixed-table build's 8192 points (where they are timed beside the
+    # twin) and at 2^18, the top level of the prover's G2 fold (timed too)
+    n7, n8 = 8192, 1 << 18
+    p, q, want, want_dbl = edge_points(torch, gen, n8, dev, "g2")
+    head = lambda pt, n: tuple(c[:n] for c in pt)  # noqa: E731
+    for name, kernel, plain, args, real in (
+            ("g2_add", g2.g2_add, g2.g2_add_plain, (p, q), want),
+            ("g2_double", g2.g2_double, g2.g2_double_plain, (p,), want_dbl)):
+        twin = plain(*args)
+        if bn254.g2_decode_many(head(kernel(*args), 64)) != real:
+            fail(f"{name}: wrong results on real points")
+        cases = {f"n={n}": max_abs_err(torch, kernel(*(head(a, n) for a in args)),
+                                       head(twin, n))
+                 for n in (1, 2, 63, 64, 65, n7, n8)}
+        print(f"{name} max |diff| by case: " + json.dumps(cases), flush=True)
+        for case, case_err in cases.items():
+            if case_err != 0:
+                fail(f"{name} ({case}): kernel disagrees with its plain version")
+        sub = tuple(head(a, n7) for a in args)
+        record(name, n7, lambda: kernel(*sub), lambda: plain(*sub), cases[f"n={n7}"], 100)
+        results[name]["cases"] = cases
+        ms8 = device_ms(torch, lambda: kernel(*args), 20, KERNEL_SYMBOLS[name])
+        b_ms, b_by = bound(n8 * PER_ITEM[name][0], n8 * PER_ITEM[name][1])
+        results[name]["n2_18"] = {"ms": ms8, "bound_ms": b_ms, "bound_by": b_by}
+        print(f"{name}: n={n8} {ms8:.4f} ms on the device (profiler); bound {b_ms:.4f} ms "
+              f"by {b_by}", flush=True)
+    results["g2_add"]["sass"] = sass_imad(build, "g2", "g2_add_kernel")
 
     # K4 at the deposit's 4096 hashes; first rows: every pair of 0, 1, p − 1,
     # p − 2; twin over 4097 rows once, the kernel at each width against it
@@ -644,28 +709,33 @@ def round_trip_depth16(torch, dev) -> dict:
     for name in DEPTH16_KERNELS:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the depth-16 path")
-    print("d16 K1/K2 launches by width, {width: [launches, items]}: "
-          + json.dumps({k: widths[k] for k in LOSS_KERNELS}), flush=True)
+    print("d16 launches by width, {width: [launches, items]}: "
+          + json.dumps({k: widths[k] for k in WIDTH_KERNELS}), flush=True)
     return {"stages": stages, "launches": counts, "launches_by_stage": per_stage,
             "widths": widths}
 
 
 def width_losses(torch, dev, widths) -> dict:
-    """K1's and K2's loss on the depth-16 path, width by width: each width
-    bucket's kernel timed on the card (profiler) at the bucket's mean width,
-    beside its bound; loss = launches × (device ms − bound)."""
-    from owshen_tpu_torch.kernels import field_ops, g1
+    """The loss of K1 (with its G2 add) and K2 on the depth-16 path, width
+    by width: each width bucket's kernel timed on the card (profiler) at the
+    bucket's mean width, beside its bound; loss = launches × (device ms −
+    bound)."""
+    from owshen_tpu_torch.kernels import field_ops, g1, g2
     from owshen_tpu_torch.oracle.field import P_FQ
 
     gen = torch.Generator().manual_seed(16)
-    widest = max(w for name in LOSS_KERNELS for w in widths[name])
+    widest = max(w for name in LOSS_KERNELS if name != "g2_add" for w in widths[name])
     a, b = (rand_field(torch, gen, P_FQ, widest, dev) for _ in range(2))
     p, q = (tuple(rand_field(torch, gen, P_FQ, widest, dev) for _ in range(3)) for _ in range(2))
+    w2 = max(widths["g2_add"])
+    p2, q2 = (tuple(rand_field(torch, gen, P_FQ, 2 * w2, dev).view(w2, 2, 16) for _ in range(3))
+              for _ in range(2))
     calls = {
         "mont_mul": lambda n: field_ops.mont_mul(a[:n], b[:n], "fq"),
         "mod_add": lambda n: field_ops.mod_add(a[:n], b[:n], "fq"),
         "mod_sub": lambda n: field_ops.mod_sub(a[:n], b[:n], "fq"),
         "g1_add": lambda n: g1.g1_add(tuple(c[:n] for c in p), tuple(c[:n] for c in q)),
+        "g2_add": lambda n: g2.g2_add(tuple(c[:n] for c in p2), tuple(c[:n] for c in q2)),
     }
     out = {}
     for name in LOSS_KERNELS:
@@ -933,8 +1003,9 @@ def main() -> int:
     nttp = ntt_phase(torch, dev)
     mimcp = mimc_phase(torch, dev)
 
-    # each kernel's launches on the path it belongs to: K1–K5 on the
-    # depth-16 round trip, K7 on the 2^20 NTT, K6 on the 2^20-leaf tree
+    # each kernel's launches on the path it belongs to: K1–K5 (and K1's G2
+    # add and double) on the depth-16 round trip, K7 on the 2^20 NTT, K6 on
+    # the 2^20-leaf tree
     launches = dict(trip["launches"])
     launches["ntt_cols"] = nttp["launches"]["ntt_cols"]
     launches["mimc_hash2"] = mimcp["launches"]["mimc_hash2"]
@@ -946,12 +1017,14 @@ def main() -> int:
          "library_ms": None, "n": kern[name]["n"], "call_ms": kern[name]["call_ms"]}
         for name, (src, rep) in KERNELS.items()],
         "stages_s": trip["stages"], "launches_by_stage": trip["launches_by_stage"],
-        "launch_widths_depth16": {k: trip["widths"][k] for k in LOSS_KERNELS},
+        "launch_widths_depth16": {k: trip["widths"][k] for k in WIDTH_KERNELS},
         "width_losses": losses, "ptxas": kern["ptxas"],
         "k1_n1_ms": {k: kern[k]["n1_ms"] for k in ("mont_mul", "mod_add")},
         "poseidon_hash2_n1_ms": kern["poseidon_hash2"]["n1_ms"],
         "kernel_checks": {k: {f: kern[k][f] for f in ("cases", "sass")}
-                          for k in ("g1_add", "poseidon_hash2")},
+                          for k in ("g1_add", "g2_add", "poseidon_hash2")},
+        "g2_double_cases": kern["g2_double"]["cases"],
+        "g2_2_18": {k: kern[k]["n2_18"] for k in ("g2_add", "g2_double")},
         "ntt_2_20": {k: v for k, v in nttp.items() if k != "launches"},
         "mimc_hash2_checks": {k: kern["mimc_hash2"][k] for k in ("cases", "sass")},
         "mimc_2_20": {k: v for k, v in mimcp.items() if k != "launches"},

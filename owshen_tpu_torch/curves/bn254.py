@@ -1,20 +1,21 @@
 """BN254 (alt_bn128) G1/G2 instances and host <-> tensor point conversion.
 
 G1: y² = x³ + 3 over Fq;  G2: y² = x³ + 3/(9+u) over Fq2 (sextic twist).
-The curve constants live in the host oracle (oracle/curve.py)."""
+The curve constants live in the host oracle (oracle/curve.py); b3 = 3·b of
+each curve is built into its kernels (kernels/g1.py, kernels/g2.py)."""
 
 from __future__ import annotations
 
 from ..fields.field import FQ, FR
 from ..fields.fq2 import FQ2
-from ..oracle.curve import B_G1, B_G2, FQ2I
+from ..oracle.curve import FQ2I
 from .weierstrass import Weierstrass
 
 Q = FQ.p
 R = FR.p
 
-G1 = Weierstrass(FQ, 3 * B_G1)
-G2 = Weierstrass(FQ2, ((3 * B_G2[0]) % Q, (3 * B_G2[1]) % Q))
+G1 = Weierstrass(FQ)
+G2 = Weierstrass(FQ2)
 
 
 def g1_encode(points, device=None):

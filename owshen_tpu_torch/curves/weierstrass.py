@@ -4,71 +4,41 @@ homogeneous projective coordinates (Renes–Costello–Batina 2015, algorithms
 branchless path.
 
 Points are (X, Y, Z) tuples of field tensors batched over leading axes.
-Over Fq (BN254 G1) every add and double is one launch of K2 / K3
-(kernels/g1.py); over Fq2 (G2) they are composed from K1 launches, as the
-JAX package composes them (owshen_tpu/curves/weierstrass.py)."""
+Every add and double is one kernel launch: over Fq (BN254 G1) K2 / K3
+(kernels/g1.py), over Fq2 (G2) g2_add / g2_double (kernels/g2.py), where
+the JAX package composes the G2 formulas from Fq2 ops that XLA fuses
+(owshen_tpu/curves/weierstrass.py)."""
 
 from __future__ import annotations
 
 import torch
 
 from ..fields.field import FQ
-from ..kernels import g1
+from ..kernels import g1, g2
 
 
 class Weierstrass:
-    """K: field-op object (Field or Fq2); b3: 3·b as a plain K constant (int
-    for Field, (c0, c1) ints for Fq2)."""
+    """K: field-op object (FQ for G1, FQ2 for G2); each curve's b3 = 3·b
+    lives in its kernels and their twins."""
 
-    def __init__(self, K, b3):
+    def __init__(self, K):
         self.K = K
-        self.b3_int = b3
-        self.is_g1 = K is FQ
+        if K is FQ:
+            self._add, self._double = g1.g1_add, g1.g1_double
+        else:
+            self._add, self._double = g2.g2_add, g2.g2_double
 
     def identity_like(self, x):
         K = self.K
         return (K.zeros_like(x), K.one_like(x), K.zeros_like(x))
 
     def add(self, p, q):
-        """Complete addition (RCB15 algorithm 7, a = 0): 12M + 2 b3-muls."""
-        if self.is_g1:
-            return g1.g1_add(p, q)
-        # independent products share one launch: stack them on a new axis
-        K, st = self.K, torch.stack
-        P, Q = st(p), st(q)
-        t0, t1, t2 = K.mul(P, Q)
-        sums = K.add(st([P[0], P[1], P[0], Q[0], Q[1], Q[0]]),
-                     st([P[1], P[2], P[2], Q[1], Q[2], Q[2]]))
-        t3, t4, t5 = K.sub(K.mul(sums[:3], sums[3:]),
-                           K.add(st([t0, t1, t0]), st([t1, t2, t2])))
-        # t3 = X1Y2 + X2Y1, t4 = Y1Z2 + Y2Z1, t5 = X1Z2 + X2Z1
-        three_t0 = K.add(K.add(t0, t0), t0)
-        t2b, y3 = K.mul_const(st([t2, t5]), self.b3_int)
-        z3 = K.add(t1, t2b)
-        t1b = K.sub(t1, t2b)
-        u = K.mul(st([t3, y3, z3, t4, t1b, three_t0]),
-                  st([t1b, three_t0, t4, y3, z3, t3]))
-        X3 = K.sub(u[0], u[3])
-        Y3, Z3 = K.add(u[1:3], u[4:6])
-        return (X3, Y3, Z3)
+        """Complete addition (RCB15 algorithm 7, a = 0)."""
+        return self._add(p, q)
 
     def double(self, p):
-        """Complete doubling (RCB15 algorithm 9, a = 0): 6M + 2S + 1 b3-mul."""
-        if self.is_g1:
-            return g1.g1_double(p)
-        K, st = self.K, torch.stack
-        X, Y, Z = p
-        t0, t1, zz, t3 = K.mul(st([Y, Y, Z, X]), st([Y, Z, Z, Y]))  # Y², YZ, Z², XY
-        z3 = K.add(t0, t0)
-        z3 = K.add(z3, z3)
-        z3 = K.add(z3, z3)                        # 8Y²
-        t2 = K.mul_const(zz, self.b3_int)
-        X3, Z3 = K.mul(st([t2, t1]), z3)
-        Y3 = K.add(t0, t2)
-        t2 = K.add(K.add(t2, t2), t2)             # 3·b3·Z²
-        t0 = K.sub(t0, t2)
-        ty, tx = K.mul(st([t0, t0]), st([Y3, t3]))
-        return (K.add(tx, tx), K.add(X3, ty), Z3)
+        """Complete doubling (RCB15 algorithm 9, a = 0)."""
+        return self._double(p)
 
     def neg(self, p):
         X, Y, Z = p

@@ -1,9 +1,14 @@
-"""Batched Fq2 = Fq[u]/(u² + 1) for BN254 G2, composed from K1 launches.
+"""Batched Fq2 = Fq[u]/(u² + 1) elements for BN254 G2.
 
 An element is int32[..., 2, 16]: index 0 = c0, 1 = c1, Montgomery
-components — the JAX package's layout (owshen_tpu/fields/fq2.py).  The
-TPU package has no Pallas kernel for Fq2, so neither does the port: every
-product here is three Fq Montgomery products (Karatsuba) on the card."""
+components — the JAX package's layout (owshen_tpu/fields/fq2.py).
+
+The G2 point operations do not come through here: they are whole kernels
+(kernels/g2.py), and their plain twins hold the Fq2 arithmetic
+(kernels/g2.py `Fq2Ops`).  What the port runs here is the element
+surface: encode/decode, constants, `neg` (one K1 launch) and `select`
+(the fixed-table MSM's y negation) and `zeros_like`/`one_like`
+(identities)."""
 
 from __future__ import annotations
 
@@ -43,43 +48,8 @@ class Fq2:
         return self.const(c[0], c[1], device=device)
 
     # -- batched ops; operands int32[..., 2, 16] --
-    # Fq ops are elementwise over the leading axes, so add/sub/neg take the
-    # (c0, c1) pair in one launch, and the three Karatsuba products of a
-    # multiply share one launch as well.
-    def add(self, a, b):
-        return self.K.add(a, b)
-
-    def sub(self, a, b):
-        return self.K.sub(a, b)
-
     def neg(self, a):
         return self.K.neg(a)
-
-    def _karatsuba(self, a, b3):
-        """a (..., 2, 16) times b given as its three Karatsuba operands
-        (b0, b1, b0 + b1) stacked on axis −2."""
-        K = self.K
-        a0, a1 = a[..., 0, :], a[..., 1, :]
-        x = torch.stack([a0, a1, K.add(a0, a1)], dim=-2)
-        v = K.mul(x, b3)                                 # v0, v1, t
-        d = K.sub(v[..., 0::2, :], v[..., 1:2, :])       # v0 − v1, t − v1
-        c1 = K.sub(d[..., 1, :], v[..., 0, :])           # t − v1 − v0
-        return torch.stack([d[..., 0, :], c1], dim=-2)
-
-    def mul(self, a, b):
-        b0, b1 = b[..., 0, :], b[..., 1, :]
-        return self._karatsuba(a, torch.stack([b0, b1, self.K.add(b0, b1)], dim=-2))
-
-    def sqr(self, a):
-        return self.mul(a, a)
-
-    def mul_const(self, a, c):
-        """Product with a fixed Fq2 constant c = (c0, c1) plain ints."""
-        K = self.K
-        c0, c1 = c
-        b3 = torch.stack([K.const(c0, device=a.device), K.const(c1, device=a.device),
-                          K.const((c0 + c1) % K.p, device=a.device)])
-        return self._karatsuba(a, b3)
 
     def eq(self, a, b):
         return (a == b).all(dim=-1).all(dim=-1)

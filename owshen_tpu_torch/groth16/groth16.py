@@ -173,16 +173,24 @@ def setup(builder: Builder, seed: bytes = b"owshen-tpu-setup", device=None):
     return pk, vk
 
 
+def _bucket_sum(prods: torch.Tensor) -> torch.Tensor:
+    """Σ over axis 1 of (r, k, 16) field elements as a halving tree:
+    ⌈log2 k⌉ adds, each of the lower half and the upper half (an odd k's
+    last column waits a level).  Modular addition is exact, so this equals
+    the sequential sum limb for limb."""
+    while prods.shape[1] > 1:
+        h = prods.shape[1] // 2
+        s = FR.add(prods[:, :h], prods[:, h:2 * h])
+        prods = torch.cat([s, prods[:, 2 * h:]], dim=1) if prods.shape[1] % 2 else s
+    return prods[:, 0]
+
+
 def _matvec(w_mont: torch.Tensor, mat, n_rows: int) -> torch.Tensor:
     """Sparse LC·w over nnz-bucketed rows (r1cs.Builder.compiled): returns
     int32[n_rows, 16]; every row lives in exactly one bucket."""
     acc = torch.zeros((n_rows, FR.L), dtype=torch.int32, device=w_mont.device)
     for rids, idx, coeff in mat:
-        prods = FR.mul(w_mont[idx], coeff)               # (r, k, 16)
-        rowsum = prods[:, 0]
-        for t in range(1, prods.shape[1]):
-            rowsum = FR.add(rowsum, prods[:, t])
-        acc[rids] = rowsum
+        acc[rids] = _bucket_sum(FR.mul(w_mont[idx], coeff))   # (r, k, 16) products
     return acc
 
 

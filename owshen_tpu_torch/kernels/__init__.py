@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels of the port (K1–K7) and their wrappers.
+"""Hand-written CUDA kernels of the port (K1–K7, with K1's G2 point
+operations) and their wrappers.
 
 Every wrapper launches its kernel on CUDA tensors (or raises) and runs its
 plain PyTorch twin on CPU tensors; `launch_counts()` reads how often each
@@ -8,7 +9,7 @@ at each width (bucketed by the power of two at or above it), and
 
 from __future__ import annotations
 
-from . import field_ops, g1, mimc, ntt, poseidon
+from . import field_ops, g1, g2, mimc, ntt, poseidon
 
 WRAPPERS = {
     "mont_mul": field_ops.mont_mul,
@@ -16,6 +17,8 @@ WRAPPERS = {
     "mod_sub": field_ops.mod_sub,
     "g1_add": g1.g1_add,
     "g1_double": g1.g1_double,
+    "g2_add": g2.g2_add,
+    "g2_double": g2.g2_double,
     "poseidon_hash2": poseidon.poseidon_hash2,
     "ntt_butterfly": ntt.butterfly_stage,
     "mimc_hash2": mimc.mimc_hash2,

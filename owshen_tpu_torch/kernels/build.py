@@ -26,7 +26,7 @@ import numpy as np
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("field_ops", "g1", "poseidon", "ntt", "mimc")
+SOURCES = ("field_ops", "g1", "g2", "poseidon", "ntt", "mimc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +42,11 @@ SIGNATURES = {
     "g1": {
         "g1_add_launch": (_P,) * 9 + (_LL, _P),
         "g1_double_launch": (_P,) * 6 + (_LL, _P),
+    },
+    "g2": {
+        "g2_add_launch": (_P,) * 9 + (_LL, _P),
+        "g2_double_launch": (_P,) * 6 + (_LL, _P),
+        "g2_consts_upload": (_P,),
     },
     "poseidon": {
         "poseidon2_launch": (_P, _P, _P, _LL, _P),
@@ -169,6 +174,11 @@ class _Libraries:
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
             check(lib.field_consts_upload(consts.ctypes.data), f"{name}: field constants")
+            if name == "g2":
+                from .g2 import b3_mont_words
+
+                b3 = np.asarray(b3_mont_words(), np.uint32)
+                check(lib.g2_consts_upload(b3.ctypes.data), "g2: b3")
             if name == "poseidon":
                 c, m, n_rounds = _poseidon_consts_words()
                 check(lib.poseidon_consts_upload(c.ctypes.data, m.ctypes.data, n_rounds),

@@ -19,7 +19,7 @@
 // field_consts_upload() from the Python side (one source of truth for p).
 //
 // The second half of this file is a lazy arithmetic for the hash kernels
-// and the G1 add (fmul_lazy, fsqr_lazy, fadd_lazy, fsub_lazy, fmul9_lazy,
+// and the G1 and G2 adds (fmul_lazy, fsqr_lazy, fadd_lazy, fsub_lazy, fmul9_lazy,
 // fcanon): values stay in [0, 2p) and are made canonical once, where a
 // result is stored.
 #pragma once
@@ -63,6 +63,27 @@ __device__ __forceinline__ void store_elem(int32_t* dst, const uint32_t x[8]) {
     v.w = static_cast<int32_t>(x[2 * q + 1] >> 16);
     d[q] = v;
   }
+}
+
+// The three coordinates of a projective point, 8 words each, in one
+// thread's registers: a G1 point (K2, K3), or one lane's Fq2 component of
+// each coordinate of a G2 point (g2.cu).  Row i of each coordinate array.
+struct Pt {
+  uint32_t x[8], y[8], z[8];
+};
+
+__device__ __forceinline__ void load_pt(Pt& p, const int32_t* x, const int32_t* y,
+                                        const int32_t* z, long long i) {
+  load_elem(x + i * 16, p.x);
+  load_elem(y + i * 16, p.y);
+  load_elem(z + i * 16, p.z);
+}
+
+__device__ __forceinline__ void store_pt(const Pt& p, int32_t* x, int32_t* y,
+                                         int32_t* z, long long i) {
+  store_elem(x + i * 16, p.x);
+  store_elem(y + i * 16, p.y);
+  store_elem(z + i * 16, p.z);
 }
 
 // r = t - p if (hi != 0 or t >= p) else t;  t < 2p
@@ -166,7 +187,7 @@ __device__ __forceinline__ void fmul9(uint32_t r[8], const uint32_t x[8],
 }
 
 // ---------------------------------------------------------------------------
-// Lazy Montgomery arithmetic on carry chains (K2, K4, K6)
+// Lazy Montgomery arithmetic on carry chains (K2, K4, K6, g2.cu)
 //
 // BN254's Fr and Fq moduli are both below 2^254, so 4p < R = 2^256.  For a, b < 2p, Montgomery's
 // (ab + mp)/R with m < R is < 4p²/R + p < 2p: a product of two values in

@@ -35,24 +35,6 @@
 
 namespace {
 
-struct Pt {
-  uint32_t x[8], y[8], z[8];
-};
-
-__device__ __forceinline__ void load_pt(Pt& p, const int32_t* x, const int32_t* y,
-                                        const int32_t* z, long long i) {
-  load_elem(x + i * 16, p.x);
-  load_elem(y + i * 16, p.y);
-  load_elem(z + i * 16, p.z);
-}
-
-__device__ __forceinline__ void store_pt(const Pt& p, int32_t* x, int32_t* y,
-                                         int32_t* z, long long i) {
-  store_elem(x + i * 16, p.x);
-  store_elem(y + i * 16, p.y);
-  store_elem(z + i * 16, p.z);
-}
-
 // RCB15 algorithm 7 (a = 0), the operation order of
 // owshen_tpu/curves/weierstrass.py Weierstrass.add, on the lazy arithmetic:
 // inputs and every value below 2q; the caller makes the result canonical

@@ -14,7 +14,7 @@ import torch
 import chip_smoke
 from owshen_tpu_torch.curves import bn254
 from owshen_tpu_torch.fields.field import FQ, FR
-from owshen_tpu_torch.kernels import field_ops, g1, mimc, ntt, poseidon
+from owshen_tpu_torch.kernels import field_ops, g1, g2, mimc, ntt, poseidon
 from owshen_tpu_torch.ops.ntt import NttDomain, col_twiddles, ntt_fused
 from owshen_tpu_torch.oracle import curve as ocurve
 
@@ -34,16 +34,32 @@ def rand_ints(rng, p, n):
     return vals
 
 
-@pytest.mark.parametrize("F", [FR, FQ], ids=["fr", "fq"])
-def test_k1_matches_plain(card, F):
+def test_k1_matches_plain(card):
     rng = np.random.default_rng(61)
-    a = F.encode(rand_ints(rng, F.p, 1000), device=card)
-    b = F.encode(rand_ints(rng, F.p, 1000)[::-1], device=card)
-    for kernel, plain in ((field_ops.mont_mul, field_ops.mont_mul_plain),
-                          (field_ops.mod_add, field_ops.mod_add_plain),
-                          (field_ops.mod_sub, field_ops.mod_sub_plain)):
-        assert torch.equal(kernel(a, b, F.name), plain(a, b, F.name))
-        assert torch.equal(kernel(a, b[7], F.name), plain(a, b[7], F.name))
+    for F in (FR, FQ):
+        a = F.encode(rand_ints(rng, F.p, 1000), device=card)
+        b = F.encode(rand_ints(rng, F.p, 1000)[::-1], device=card)
+        for kernel, plain in ((field_ops.mont_mul, field_ops.mont_mul_plain),
+                              (field_ops.mod_add, field_ops.mod_add_plain),
+                              (field_ops.mod_sub, field_ops.mod_sub_plain)):
+            assert torch.equal(kernel(a, b, F.name), plain(a, b, F.name))
+            assert torch.equal(kernel(a, b[7], F.name), plain(a, b[7], F.name))
+
+
+def test_g2_kernels_match_plain(card):
+    """K1's G2 add and double against their twins at 1, 65 and 8192 points,
+    chip_smoke.edge_pairs (O + O, P + O, O + Q, P + P, P + (−P)) first."""
+    n = 8192
+    tp, tq, want, want_dbl = chip_smoke.edge_points(torch, torch.Generator().manual_seed(65),
+                                                    n, card, "g2")
+    assert bn254.g2_decode_many(tuple(c[:64] for c in g2.g2_add(tp, tq))) == want
+    assert bn254.g2_decode_many(tuple(c[:64] for c in g2.g2_double(tp))) == want_dbl
+    for m in (1, 65, n):
+        p, q = tuple(c[:m] for c in tp), tuple(c[:m] for c in tq)
+        for x, y in zip(g2.g2_add(p, q), g2.g2_add_plain(p, q)):
+            assert torch.equal(x, y)
+        for x, y in zip(g2.g2_double(p), g2.g2_double_plain(p)):
+            assert torch.equal(x, y)
 
 
 def test_k2_k3_match_plain(card):

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from owshen_tpu.curves import bn254 as jbn
 from owshen_tpu.oracle import curve as ocurve
 from owshen_tpu.pallas.field_kernels import g1_add_pallas, g1_double_pallas
@@ -27,23 +28,11 @@ def same(tp, jp):
                for t, j in zip(tp, jp))
 
 
-def neg(curve, pt):
-    if pt is None:
-        return None
-    return (pt[0], curve.K.neg(pt[1]))
-
-
 def edge_pairs(curve, gen, rng, n):
-    """n (p, q) pairs: random multiples, identities, P + P and P + (−P)."""
+    """n (p, q) pairs: identities, P + P and P + (−P), then random
+    multiples (chip_smoke.edge_pairs)."""
     ks = [int(k) for k in rng.integers(1, 1 << 62, size=n)]
-    ps = [curve.mul(gen, k) for k in ks]
-    qs = ps[1:] + ps[:1]
-    ps[0], qs[0] = None, None           # O + O
-    qs[1] = None                        # P + O
-    ps[2] = None                        # O + Q
-    qs[3] = ps[3]                       # P + P
-    qs[4] = neg(curve, ps[4])           # P + (−P)
-    return ps, qs
+    return chip_smoke.edge_pairs(curve, gen, ks)
 
 
 def test_g1_kernels_match_pallas():

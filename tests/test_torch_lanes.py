@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from lazy_words import LazyField, value, words
 from owshen_tpu import config as jax_config
 from owshen_tpu.groth16 import groth16 as jax_groth16
@@ -141,16 +142,12 @@ def g1_add_lazy(p, q):
 
 
 def test_lazy_g1_add_matches_oracles():
-    """The model of K2 on the edge pairs of chip_smoke.edge_points (O + O,
-    P + O, P + P, P + (−P)) and on seeded multiples of G: the affine sums
-    equal both packages' oracles, and the canonical coordinates equal the
-    plain twin's limb for limb."""
-    pts = [ocurve.G1.mul(ocurve.G1_GEN, k) for k in (3, 5, 7, 11, 13, 17, 1 << 200)]
-    qs = pts[1:] + pts[:1]
-    pts[0] = qs[0] = None
-    qs[1] = None
-    qs[2] = pts[2]
-    qs[3] = (pts[3][0], (-pts[3][1]) % P_FQ)
+    """The model of K2 on chip_smoke.edge_pairs (O + O, P + O, O + Q,
+    P + P, P + (−P)) and on seeded multiples of G: the affine sums equal
+    both packages' oracles, and the canonical coordinates equal the plain
+    twin's limb for limb."""
+    pts, qs = chip_smoke.edge_pairs(ocurve.G1, ocurve.G1_GEN,
+                                    (3, 5, 7, 11, 13, 17, 1 << 200))
     tp, tq = bn254.g1_encode(pts), bn254.g1_encode(qs)
     twin = g1.g1_add_plain(tp, tq)
 
