@@ -10,15 +10,20 @@
    P + P and P + (−P); equality is exact.  K1–K4 at the depth-16 shapes
    (K2 also at widths 1, 127, 129 and 81,919, K4 at 1, 31, 4095 and 4097,
    K1's G2 add and double at 1, 2, 63, 64, 65, 8192 and 2^18 points),
-   K5 on the last stage of the 2^20 NTT, K6 at 2^16 hashes (and at N = 1,
-   33, 1000 and on edge rows), K7 on the first level of the 2^20 fused NTT.
+   K3 at N = 1, 2, 3, 4, 5, 63, 65, 8191, 8192 and 2^18 (edge points
+   first), K5 on the last stage of the 2^20 NTT, K6 at 2^16 hashes (and at
+   N = 1, 33, 1000 and on edge rows), K7 at log_n1 = 1, 2, 3, 5, 10 and 12,
+   forward and inverse, on 1, 3, 1023 and 1024 columns with 0, 1 and p − 1
+   in every column, and on the first level of the 2^20 fused NTT.
    Times kernel and twin (profiler device time, CUDA events), computes each
    kernel's bound from its inputs, times K1 at one element (the card's
    floor per launch) and K4 at one hash (its chain's latency), prints each
-   kernel's registers, spills and shared memory (ptxas) and counts the IMAD
-   instructions of K2, K4, K6 and the G2 add in the built libraries' SASS
-   (cuobjdump).  The G2 kernels are timed at 8192 points (the fixed-table
-   build) and 2^18 (the top level of the prover's G2 fold).
+   kernel's registers, spills and shared memory (ptxas), counts the IMAD
+   instructions of K2, K4, K6 and the G2 add and the shared-memory loads and
+   stores of K7 in the built libraries' SASS (cuobjdump).  The G2 kernels
+   are timed at 8192 points (the fixed-table build) and 2^18 (the top level
+   of the prover's G2 fold); K3 at 8192 points, 2^18 and one point (its
+   launch floor).
 3. Drives the depth-16 pool round trip through the entry points a user
    calls: PrivacyPool(depth=16) with a real setup of the 4431-constraint
    withdraw circuit, a deposit of 4096 commitments, the root against the
@@ -37,7 +42,8 @@
    the fused K7 path give equal transforms, the inverse of each returns the
    input, both equal the host oracle at 2^10, and the 2^12 transform of a
    seeded input matches NTT_DIGEST; launch counts zeroed before, K5 and K7
-   must be > 0; the fused transform's device-busy time must be > 0.
+   must be > 0; the fused transform's device-busy time must be > 0, and it
+   is split by kernel (K7, the K1 correction multiply, the transpose copy).
 6. The dense MiMC tree over 2^20 seeded leaves: build_levels (one K6 launch
    per level), every level against the plain twins applied to the level
    below (one twin call over all nodes, so the root is the twins' root), 1024
@@ -139,6 +145,23 @@ MIMC_OPS = 364 * SQR_OPS + 364 * MUL_OPS + 368 * ADD_OPS    # x^7: 2 squares, 2 
 # adds; the double: 6 products, 2 squares (Y², Z²), 1 by b3 and 9 Fq2 adds
 G2_ADD_WORK = (12 * 3 + 2 * 3, 12 * 5 + 2 * 4 + 19 * 2)
 G2_DOUBLE_WORK = (6 * 3 + 2 * 2 + 3, 6 * 5 + 2 * 3 + 4 + 9 * 2)
+# (Fq products, squares, adds and subtracts) of a G1 double, the least
+# work, which the plain twin does (kernels/g1.py double_lm_pts;
+# tests/test_torch_k3_k7.py checks the counts): X·Y, Y·Z and 4 products of
+# the second half, Y² and Z², and 13 adds (8·Y² 3, 9·Z² 4, Y3 1, 3·t2 2,
+# t0 1, X3 and Y3 2)
+G1_DOUBLE_WORK = (6, 2, 13)
+
+
+def ntt_cols_work(log_n1: int) -> tuple[int, int]:
+    """(Fr products, Fr adds and subtracts) of one column's radix-2
+    transform of 2^log_n1 points, the least work: every butterfly adds and
+    subtracts, and all but the n1 − 1 whose twiddle is ω^0 = 1 (stage s has
+    n1/2^s of them) multiply."""
+    n1 = 1 << log_n1
+    flies = n1 // 2 * log_n1
+    return flies - (n1 - 1), 2 * flies
+
 
 KERNELS = {
     # name: (source, replaced TPU kernel)
@@ -174,7 +197,8 @@ PER_ITEM = {
     "mod_add": (3 * ROW, ADD_OPS),
     "mod_sub": (3 * ROW, ADD_OPS),
     "g1_add": (9 * ROW, 12 * MUL_OPS + 27 * ADD_OPS),
-    "g1_double": (6 * ROW, 6 * MUL_OPS + 2 * SQR_OPS + 20 * ADD_OPS),   # Y², Z² squares
+    "g1_double": (6 * ROW, G1_DOUBLE_WORK[0] * MUL_OPS + G1_DOUBLE_WORK[1] * SQR_OPS
+                  + G1_DOUBLE_WORK[2] * ADD_OPS),
     "g2_add": (18 * ROW, G2_ADD_WORK[0] * MUL_OPS + G2_ADD_WORK[1] * ADD_OPS),
     "g2_double": (12 * ROW, G2_DOUBLE_WORK[0] * MUL_OPS + G2_DOUBLE_WORK[1] * ADD_OPS),
     "poseidon_hash2": (3 * ROW, 162 * SQR_OPS + 666 * MUL_OPS + 585 * ADD_OPS),
@@ -287,9 +311,10 @@ def device_ms(torch, fn, reps: int, kernel: str) -> float:
     fail(f"the profiler's timeline lost launches of {kernel} in {TRIES} tries")
 
 
-def device_busy(torch, fn) -> tuple[float, float]:
-    """(wall seconds, device-busy seconds) of one call of fn: the busy time
-    is the union of the device spans on the profiler's timeline.  Every
+def device_busy(torch, fn) -> tuple[float, float, list]:
+    """(wall seconds, device-busy seconds, device spans) of one call of fn:
+    the busy time is the union of the device spans on the profiler's
+    timeline.  Every
     launch the port's wrappers count during fn must be among them: a
     session that lost some is taken again; after TRIES the run fails."""
     from owshen_tpu_torch import kernels
@@ -304,7 +329,7 @@ def device_busy(torch, fn) -> tuple[float, float]:
             for lo, hi in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
                 busy_us += max(0.0, hi - max(lo, end))
                 end = max(end, hi)
-            return wall, busy_us / 1e6
+            return wall, busy_us / 1e6, events
         print(f"device_busy: the timeline holds {seen} of the launches {launched}; "
               f"profiling again", flush=True)
     fail(f"the profiler's timeline lost kernel launches in {TRIES} tries")
@@ -313,6 +338,19 @@ def device_busy(torch, fn) -> tuple[float, float]:
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain twins
 # ---------------------------------------------------------------------------
+
+def spans_by_kernel(events) -> dict:
+    """{kernel: [spans, device ms]} over device spans: the port's kernels
+    by their KERNEL_SYMBOLS name, any other span by its name."""
+    out = {}
+    for e in events:
+        key = next((name for name, sym in KERNEL_SYMBOLS.items() if sym in e["name"]),
+                   e["name"].split("(")[0][:80])
+        row = out.setdefault(key, [0, 0.0])
+        row[0] += 1
+        row[1] += e["dur"] / 1e3
+    return out
+
 
 def rand_field(torch, gen, p: int, n: int, dev):
     """n random canonical elements (top limb below p's) with 0, 1, p − 1
@@ -378,6 +416,9 @@ def ptxas_usage(logs: dict) -> dict:
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 name = kernel_of(m.group(1))
+                arg = re.search(r"ILi(\d+)E", m.group(1))
+                if arg and "<" not in name:     # a template's instances apart
+                    name += f"<{arg[1]}>"
                 usage[name] = {}
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if m and name:
@@ -390,32 +431,51 @@ def ptxas_usage(logs: dict) -> dict:
     return usage
 
 
-def sass_imad(build, lib: str, symbol: str) -> dict:
-    """IMAD-family instructions of one kernel in the built library's SASS,
-    by opcode, and the multiply-add results they give (an IMAD.WIDE gives
-    two: the low and the high word).  The count is static: a loop body
-    counts once."""
+def sass_opcodes(path, symbol: str) -> dict:
+    """Instructions of the kernels whose symbol contains `symbol` in the
+    SASS of the library at `path`, by opcode (guard predicates dropped).
+    The count is static: a loop body counts once."""
     import shutil
     from pathlib import Path
+
+    from owshen_tpu_torch.kernels import build
 
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     tool = str(tool) if tool.is_file() else shutil.which("cuobjdump")
     if tool is None:
         fail("cuobjdump not found beside nvcc")
-    sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
-                          capture_output=True, text=True, check=True).stdout
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
     counts, inside = {}, False
     for line in sass.splitlines():
         if "Function :" in line:
             inside = symbol in line
-        elif inside and "IMAD" in line:
-            op = next(w for w in line.replace(";", " ").split() if w.startswith("IMAD"))
-            counts[op] = counts.get(op, 0) + 1
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if inside and m:
+            counts[m[1]] = counts.get(m[1], 0) + 1
+    return counts
+
+
+def sass_imad(build, lib: str, symbol: str) -> dict:
+    """IMAD-family instructions of one kernel in the built library's SASS,
+    by opcode, and the multiply-add results they give (an IMAD.WIDE gives
+    two: the low and the high word).  The count is static: a loop body
+    counts once."""
+    counts = {op: n for op, n in sass_opcodes(build.library_path(lib), symbol).items()
+              if op.startswith("IMAD")}
     total = sum(counts.values())
     results = sum(n * (2 if ".WIDE" in op else 1) for op, n in counts.items())
     print(f"{symbol} SASS: {total} IMAD {json.dumps(counts)}, {results} multiply-add results",
           flush=True)
     return {"imad": total, "multiply_adds": results, "by_opcode": counts}
+
+
+def shared_ops(path, symbol: str) -> dict:
+    """The shared-memory loads and stores of a kernel's SASS by opcode: LDS
+    reads 32 bits a lane, LDS.64 / LDS.128 two or four words"""
+    return {op: n for op, n in sass_opcodes(path, symbol).items()
+            if op.split(".")[0] in ("LDS", "STS")}
 
 
 def check_kernels(torch, dev) -> dict:
@@ -492,21 +552,41 @@ def check_kernels(torch, dev) -> dict:
     results["g1_add"]["cases"] = cases
     results["g1_add"]["sass"] = sass_imad(build, "g1", "g1_add_kernel")
 
-    n3 = 8192
-    p3 = tuple(c[:n3] for c in p)
-    got = g1.g1_double(p3)
-    err = max_abs_err(torch, got, g1.g1_double_plain(p3))
-    if bn254.g1_decode_many(tuple(c[:64] for c in got)) != want_dbl:
+    # K3: the doublings of edge_points' first rows (the identity and
+    # multiples of G) lead random coordinates; checked at ragged N and at
+    # 2^18, timed at the fixed-table build's 8192 points, at 2^18 and at one
+    # point (its launch floor)
+    n3, n3_big = 8192, 1 << 18
+    head = lambda pt, n: tuple(c[:n] for c in pt)  # noqa: E731
+    p3, _, _, want_dbl = edge_points(torch, torch.Generator().manual_seed(3), n3_big, dev)
+    twin3 = g1.g1_double_plain(p3)
+    if bn254.g1_decode_many(head(g1.g1_double(p3), 64)) != want_dbl:
         fail("g1_double: wrong doublings on real points")
-    record("g1_double", n3, lambda: g1.g1_double(p3), lambda: g1.g1_double_plain(p3),
-           err, 100)
+    cases = {}
+    for n in (1, 2, 3, 4, 5, 63, 65, 8191, n3, n3_big):
+        cases[f"n={n}"] = max_abs_err(torch, g1.g1_double(head(p3, n)), head(twin3, n))
+    print("g1_double max |diff| by case: " + json.dumps(cases), flush=True)
+    for case, case_err in cases.items():
+        if case_err != 0:
+            fail(f"g1_double ({case}): a kernel disagrees with its plain version")
+    sub3 = head(p3, n3)
+    record("g1_double", n3, lambda: g1.g1_double(sub3), lambda: g1.g1_double_plain(sub3),
+           cases[f"n={n3}"], 100)
+    dbl = results["g1_double"]
+    dbl["cases"] = cases
+    sym = KERNEL_SYMBOLS["g1_double"]
+    dbl["ms_by_n"] = {f"n={n}": device_ms(torch, lambda: g1.g1_double(head(p3, n)), reps, sym)
+                      for n, reps in ((1, 100), (n3, 100), (n3_big, 20))}
+    print("g1_double device ms: " + json.dumps(dbl["ms_by_n"]), flush=True)
+    b_ms, b_by = bound(n3_big * PER_ITEM["g1_double"][0], n3_big * PER_ITEM["g1_double"][1])
+    dbl["n2_18"] = {"bound_ms": b_ms, "bound_by": b_by}
+    print(f"g1_double: n={n3_big} bound {b_ms:.5f} ms by {b_by}", flush=True)
 
     # K1's G2 add and double: the edge pairs lead; checked at small N, at
     # the fixed-table build's 8192 points (where they are timed beside the
     # twin) and at 2^18, the top level of the prover's G2 fold (timed too)
     n7, n8 = 8192, 1 << 18
     p, q, want, want_dbl = edge_points(torch, gen, n8, dev, "g2")
-    head = lambda pt, n: tuple(c[:n] for c in pt)  # noqa: E731
     for name, kernel, plain, args, real in (
             ("g2_add", g2.g2_add, g2.g2_add_plain, (p, q), want),
             ("g2_double", g2.g2_double, g2.g2_double_plain, (p,), want_dbl)):
@@ -598,15 +678,46 @@ def check_kernels(torch, dev) -> dict:
     print(f"  (mimc2_kernel holds one round in its loop; the bound counts "
           f"{(2 * SQR_OPS + 2 * MUL_OPS) // 2} multiply-adds a round)", flush=True)
 
-    # K7: the first level of the 2^20 fused NTT, 2^10 columns of 2^10 points
+    # K7 at every log_n1 the fused route's recursion can give it and at the
+    # limits, forward and inverse, on 1, 3, 1023 and 1024 columns, with 0, 1
+    # and p − 1 in every column (rotating over the columns).  Columns are
+    # independent, so the twin runs once on 1024 and its first c columns
+    # are the twin of the first c
+    edge = rand_field(torch, gen, P_FR, 4, dev)[:3]           # 0, 1, p − 1
+    cases = {}
+    for lg in (1, 2, 3, 5, 10, 12):
+        n1 = 1 << lg
+        xs = rand_field(torch, gen, P_FR, n1 * 1024, dev).view(n1, 1024, 16)
+        cidx = torch.arange(1024, device=dev)
+        for k in range(3):
+            xs[(cidx + k) % n1, cidx] = edge[(cidx + k) % 3]
+        for inverse in (False, True):
+            tw = col_twiddles(lg, inverse, dev)
+            twin = ntt.ntt_cols_plain(xs, tw)
+            for c in (1, 3, 1023, 1024):
+                key = f"log_n1={lg} {'inverse' if inverse else 'forward'} cols={c}"
+                cases[key] = max_abs_err(torch, ntt.ntt_cols(xs[:, :c], tw), twin[:, :c])
+    print("ntt_cols max |diff| by case: " + json.dumps(cases), flush=True)
+    for case, case_err in cases.items():
+        if case_err != 0:
+            fail(f"ntt_cols ({case}): a kernel disagrees with its plain version")
+
+    # K7 timed at the first level of the 2^20 fused NTT, 2^10 columns of
+    # 2^10 points
     la = 10
     x7 = rand_field(torch, gen, P_FR, 1 << 20, dev).view(1 << la, -1, 16)
     tw7 = col_twiddles(la, False, dev)
     err = max_abs_err(torch, ntt.ntt_cols(x7, tw7), ntt.ntt_cols_plain(x7, tw7))
     cols = x7.shape[1]
+    muls7, adds7 = ntt_cols_work(la)
     record("ntt_cols", cols, lambda: ntt.ntt_cols(x7, tw7), lambda: ntt.ntt_cols_plain(x7, tw7),
            err, 50, work=(2 * (1 << 20) * ROW + tw7.shape[0] * ROW,
-                          cols * (1 << (la - 1)) * la * BFLY_OPS))
+                          cols * (muls7 * MUL_OPS + adds7 * ADD_OPS)))
+    results["ntt_cols"]["cases"] = cases
+    results["ntt_cols"]["shared_ops"] = shared_ops(build.library_path("ntt"),
+                                                   "ntt_cols_kernelILi3E")
+    print("ntt_cols_kernel<3> SASS shared-memory ops: "
+          + json.dumps(results["ntt_cols"]["shared_ops"]), flush=True)
     return results
 
 
@@ -693,7 +804,7 @@ def round_trip_depth16(torch, dev) -> dict:
     stages["prove_warm_s"] = time.time() - t
     marks["warm_prove"] = kernels.launch_counts()
     print(f"d16 warm prove: {stages['prove_warm_s']:.2f} s", flush=True)
-    wall, busy = device_busy(torch, lambda: groth16.prove(pool.pk, builder, device=dev))
+    wall, busy, _ = device_busy(torch, lambda: groth16.prove(pool.pk, builder, device=dev))
     stages["prove_profiled_s"], stages["prove_device_busy_s"] = wall, busy
     print(f"d16 warm prove under the profiler: {wall:.2f} s, device busy {busy:.3f} s "
           f"(idle {100 * (1 - busy / wall):.1f} %)", flush=True)
@@ -832,12 +943,14 @@ def ntt_phase(torch, dev) -> dict:
             fn()
         torch.cuda.synchronize()
         out[f"{route}_s"] = (time.time() - t) / reps
-        wall, busy = device_busy(torch, fn)
+        wall, busy, events = device_busy(torch, fn)
         out[f"{route}_profiled_s"], out[f"{route}_busy_s"] = wall, busy
         if busy <= 0:
             fail(f"NTT 2^20 ({route}): the profiler's timeline shows no device time")
+        out[f"{route}_split"] = spans_by_kernel(events)
         print(f"ntt 2^20 {route}: {out[f'{route}_s']:.5f} s per transform; under the "
-              f"profiler {wall:.5f} s, device busy {busy:.5f} s", flush=True)
+              f"profiler {wall:.5f} s, device busy {busy:.5f} s; [spans, device ms] by "
+              f"kernel: " + json.dumps(out[f"{route}_split"]), flush=True)
 
     rng = random.Random(10)
     xs = [rng.randrange(FR.p) for _ in range(1 << 10)]
@@ -936,7 +1049,7 @@ def mimc_phase(torch, dev) -> dict:
         build_levels(leaves, "mimc")
     torch.cuda.synchronize()
     out["build_s"] = (time.time() - t) / reps
-    wall, busy = device_busy(torch, lambda: build_levels(leaves, "mimc"))
+    wall, busy, _ = device_busy(torch, lambda: build_levels(leaves, "mimc"))
     out["build_profiled_s"], out["build_busy_s"] = wall, busy
     out["levels"] = level_times(torch, levels, reps)
     print("mimc 2^20 by level, [hashes, device ms, bound ms]: "
@@ -1024,6 +1137,9 @@ def main() -> int:
         "kernel_checks": {k: {f: kern[k][f] for f in ("cases", "sass")}
                           for k in ("g1_add", "g2_add", "poseidon_hash2")},
         "g2_double_cases": kern["g2_double"]["cases"],
+        "g1_double_checks": {k: kern["g1_double"][k]
+                             for k in ("cases", "ms_by_n", "n2_18")},
+        "ntt_cols_checks": {k: kern["ntt_cols"][k] for k in ("cases", "shared_ops")},
         "g2_2_18": {k: kern[k]["n2_18"] for k in ("g2_add", "g2_double")},
         "ntt_2_20": {k: v for k, v in nttp.items() if k != "launches"},
         "mimc_hash2_checks": {k: kern["mimc_hash2"][k] for k in ("cases", "sass")},

@@ -18,10 +18,10 @@
 // Constants: kField[0] = Fr, kField[1] = Fq, uploaded once per library by
 // field_consts_upload() from the Python side (one source of truth for p).
 //
-// The second half of this file is a lazy arithmetic for the hash kernels
-// and the G1 and G2 adds (fmul_lazy, fsqr_lazy, fadd_lazy, fsub_lazy, fmul9_lazy,
-// fcanon): values stay in [0, 2p) and are made canonical once, where a
-// result is stored.
+// The second half of this file is a lazy arithmetic for the hash kernels,
+// the G1 and G2 point operations and the fused column NTT (fmul_lazy,
+// fsqr_lazy, fadd_lazy, fsub_lazy, fmul9_lazy, fcanon): values stay in
+// [0, 2p) and are made canonical once, where a result is stored.
 #pragma once
 
 #include <cstdint>
@@ -175,19 +175,8 @@ __device__ __forceinline__ void fsub(uint32_t r[8], const uint32_t a[8],
   }
 }
 
-// 9·x as three doublings and an add (b3 = 3·b = 9 on BN254 G1): the same
-// canonical value as the TPU kernel's Montgomery product by mont(9)
-__device__ __forceinline__ void fmul9(uint32_t r[8], const uint32_t x[8],
-                                      const FieldConsts& F) {
-  uint32_t t[8];
-  fadd(t, x, x, F);
-  fadd(t, t, t, F);
-  fadd(t, t, t, F);
-  fadd(r, t, x, F);
-}
-
 // ---------------------------------------------------------------------------
-// Lazy Montgomery arithmetic on carry chains (K2, K4, K6, g2.cu)
+// Lazy Montgomery arithmetic on carry chains (K2, K3, K4, K6, K7, g2.cu)
 //
 // BN254's Fr and Fq moduli are both below 2^254, so 4p < R = 2^256.  For a, b < 2p, Montgomery's
 // (ab + mp)/R with m < R is < 4p²/R + p < 2p: a product of two values in

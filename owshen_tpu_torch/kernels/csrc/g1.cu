@@ -1,5 +1,6 @@
 // K2 / K3: complete projective addition and doubling on BN254 G1
-// (y² = x³ + 3 over Fq), one thread per point.
+// (y² = x³ + 3 over Fq): one thread per point for the add, four for the
+// double.
 //
 // Replaces owshen_tpu/pallas/field_kernels.py `g1_add_pallas`
 // (`_g1_add_kernel` → `_wadd_lm`) and `g1_double_pallas`
@@ -30,7 +31,29 @@
 // rows.  There the loads, the arithmetic and the stores of a wave hardly
 // overlap, so the time is near the bytes' bound plus the operations'.
 //
-// K3 keeps the canonical product (fmul, fadd, fsub, fmul9) in its body.
+// K3, the double, runs RCB15 algorithm 9 on the same lazy arithmetic with
+// four threads (lanes) per point, so that its 8 products form a chain of 2:
+// one thread per point ran all 8 back to back, and at the fixed-table
+// build's 8192 points its 64 blocks left most of the 132 SMs idle with one
+// warp a scheduler, so one thread's latency set the time.  Lane l of a
+// point (l = threadIdx.x & 3):
+//  - round 1: lane 0 forms Y², lane 1 Z², lane 2 t1 = Y·Z, lane 3 X·Y;
+//  - exchange: Y² and Z² go to every lane of the point (__shfl_sync, 16
+//    words); lanes 2 and 3 keep their own product;
+//  - every lane forms the cheap adds z3 = 8·Y², t2 = 9·Z², y3 = Y² + t2
+//    and t0 = Y² − 3·t2 (the same values in all four);
+//  - round 2: lane 0 forms t2·z3, lane 1 t0·y3, lane 2 Z3 = t1·z3, lane 3
+//    t0·XY;
+//  - lane 1 takes lane 0's product (__shfl_up_sync, 8 words) and stores
+//    Y3 = t2·z3 + t0·y3, lane 2 stores Z3 and lane 3 X3 = 2·(t0·XY), each
+//    made canonical once (fcanon).
+// All four lanes run fmul_lazy on operands they select, so the warp runs
+// one instruction stream: a lane that squared with fsqr_lazy while the
+// others multiplied would make the warp run both.  A thread past the end
+// runs row 0 and stores nothing, so every shuffle sees a full warp (any N).
+// A two-lane form (lane 0: Y², Z², then t2·z3 and t0·y3; lane 1: Y·Z, X·Y,
+// then Z3 and t0·XY) was slower at the fixed-table build's 8192 points on
+// the H100 (PERF.md §6) and was not kept.
 #include "field.cuh"
 
 namespace {
@@ -77,29 +100,6 @@ __device__ __forceinline__ void g1_add_lazy(Pt& r, const Pt& p, const Pt& q,
   fadd_lazy(r.z, u, v, F);
 }
 
-// RCB15 algorithm 9 (a = 0), the operation order of Weierstrass.double
-__device__ __forceinline__ void g1_dbl_dev(Pt& r, const Pt& p, const FieldConsts& F) {
-  uint32_t t0[8], t1[8], t2[8], z3[8], x3[8], y3[8], u[8];
-  fmul(t0, p.y, p.y, F);
-  fadd(z3, t0, t0, F);
-  fadd(z3, z3, z3, F);
-  fadd(z3, z3, z3, F);  // 8Y²
-  fmul(t1, p.y, p.z, F);
-  fmul(u, p.z, p.z, F);
-  fmul9(t2, u, F);
-  fmul(x3, t2, z3, F);
-  fadd(y3, t0, t2, F);
-  fmul(r.z, t1, z3, F);
-  fadd(t1, t2, t2, F);
-  fadd(t2, t1, t2, F);  // 3·b3·Z²
-  fsub(t0, t0, t2, F);
-  fmul(u, t0, y3, F);
-  fadd(r.y, x3, u, F);
-  fmul(t1, p.x, p.y, F);
-  fmul(x3, t0, t1, F);
-  fadd(r.x, x3, x3, F);
-}
-
 constexpr int kThreads = 128;
 constexpr int kAddMinBlocks = 4;
 
@@ -122,17 +122,69 @@ g1_add_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
   store_pt(r, ox, oy, oz, i);
 }
 
-__global__ void g1_dbl_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
-                              const int32_t* __restrict__ z1, int32_t* __restrict__ ox,
-                              int32_t* __restrict__ oy, int32_t* __restrict__ oz,
-                              long long n) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+constexpr int kDblLanes = 4;
+constexpr unsigned kWarp = 0xFFFFFFFFu;  // every lane of the warp takes part
+
+// r = v of lane `src` of this thread's point (its kDblLanes adjacent lanes)
+__device__ __forceinline__ void from_lane(uint32_t r[8], const uint32_t v[8], int src) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r[j] = __shfl_sync(kWarp, v[j], src, kDblLanes);
+}
+
+// r = (lane ? b : a), word by word
+__device__ __forceinline__ void pick(uint32_t r[8], bool lane, const uint32_t a[8],
+                                     const uint32_t b[8]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r[j] = lane ? b[j] : a[j];
+}
+
+// RCB15 algorithm 9 (a = 0) between the two rounds of products, the
+// operation order of Weierstrass.double: from t0 = Y² and zz = Z², z3 =
+// 8·Y², t2 = b3·Z², y3 = Y² + t2 and t0 <- Y² − 3·t2
+__device__ __forceinline__ void dbl_adds(uint32_t t0[8], const uint32_t zz[8], uint32_t z3[8],
+                                         uint32_t t2[8], uint32_t y3[8], const FieldConsts& F) {
+  uint32_t t3[8];
+  fadd_lazy(z3, t0, t0, F);
+  fadd_lazy(z3, z3, z3, F);
+  fadd_lazy(z3, z3, z3, F);
+  fmul9_lazy(t2, zz, F);
+  fadd_lazy(y3, t0, t2, F);
+  fadd_lazy(t3, t2, t2, F);
+  fadd_lazy(t3, t3, t2, F);
+  fsub_lazy(t0, t0, t3, F);
+}
+
+__global__ void __launch_bounds__(kThreads)
+g1_dbl_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
+              const int32_t* __restrict__ z1, int32_t* __restrict__ ox,
+              int32_t* __restrict__ oy, int32_t* __restrict__ oz, long long n) {
+  const long long i =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / kDblLanes;
+  const int lane = threadIdx.x & (kDblLanes - 1);
+  const bool live = i < n;
+  const long long row = (live ? i : 0) * 16;   // a dummy point past the end
   const FieldConsts& F = kField[1];
-  Pt p, r;
-  load_pt(p, x1, y1, z1, i);
-  g1_dbl_dev(r, p, F);
-  store_pt(r, ox, oy, oz, i);
+  uint32_t a[8], b[8], own[8], r[8], t0[8], zz[8], z3[8], t2[8], y3[8];
+  load_elem((lane == 1 ? z1 : lane == 3 ? x1 : y1) + row, a);
+  load_elem((lane == 1 || lane == 2 ? z1 : y1) + row, b);
+  fmul_lazy(own, a, b, F);          // Y², Z², Y·Z, X·Y
+  from_lane(t0, own, 0);
+  from_lane(zz, own, 1);
+  dbl_adds(t0, zz, z3, t2, y3, F);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    a[j] = lane == 0 ? t2[j] : lane == 2 ? own[j] : t0[j];
+    b[j] = lane == 1 ? y3[j] : lane == 3 ? own[j] : z3[j];
+  }
+  fmul_lazy(r, a, b, F);            // t2·z3, t0·y3, Z3 = t1·z3, t0·XY
+#pragma unroll
+  for (int j = 0; j < 8; ++j) b[j] = __shfl_up_sync(kWarp, r[j], 1, kDblLanes);
+  pick(b, lane == 1, r, b);
+  fadd_lazy(a, b, r, F);            // lane 1: Y3; lane 3: X3
+  pick(a, lane == 2, a, r);
+  fcanon(a, a, F);
+  int32_t* const dst = lane == 1 ? oy : lane == 2 ? oz : ox;
+  if (live && lane != 0) store_elem(dst + i * 16, a);
 }
 
 unsigned int n_blocks(long long n) {
@@ -155,7 +207,7 @@ extern "C" int g1_double_launch(const int32_t* x1, const int32_t* y1, const int3
                                 int32_t* ox, int32_t* oy, int32_t* oz, long long n,
                                 void* stream) {
   if (n <= 0) return 0;
-  g1_dbl_kernel<<<n_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  g1_dbl_kernel<<<n_blocks(kDblLanes * n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x1, y1, z1, ox, oy, oz, n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,7 +27,7 @@ from . import build
 from .field_ops import (FIELD_INDEX, L, count_launch, kernel_operand, mod_add_plain,
                         mod_sub_plain, mont_mul_plain, on_cpu, stream_handle)
 
-MAX_COLS_LOGN = 12   # a 2^12 column and its twiddles fill 192 KB of shared memory
+MAX_COLS_LOGN = 12   # a 2^12 column and its twiddles fill 194 KB of shared memory
 
 
 @functools.lru_cache(maxsize=None)

@@ -26,11 +26,12 @@ from ..kernels.ntt import bitrev_indices, butterfly_stage, ntt_cols
 
 # Largest fused column of the Bailey split.  The TPU capped it at 2^7 to
 # bound Mosaic's compile time; on the card the limit is shared memory: a
-# 2^10 column and its 2^9 twiddles take 48 KB (8 words each), so four
-# blocks of 256 threads fit an SM's 227 KB.  At 2^20, any cap from 10 up
-# gives the same split (2^10 × 2^10: two fused levels, one correction
-# multiply, one transpose); a larger cap only changes sizes above 2^20, and
-# costs blocks per SM (2^11: two, 2^12: one).
+# 2^10 column and its 2^9 twiddles take 48.6 KB (8 words each, padded), and
+# three blocks of 128 threads share an SM (their registers bound it before
+# the SM's 227 KB does).  At 2^20, any cap from 10 up gives the same split
+# (2^10 × 2^10: two fused levels, one correction multiply, one transpose);
+# a larger cap only changes sizes above 2^20, and costs blocks per SM
+# (2^11: two, 2^12: one).
 FUSED_MAX_LOGN = 10
 
 

@@ -79,8 +79,13 @@ def test_k2_k3_match_plain(card):
         head = lambda pt: tuple(c[:n] for c in pt)  # noqa: E731
         for x, y in zip(g1.g1_add(head(tp), head(tq)), head(twin)):
             assert torch.equal(x, y)
-    for x, y in zip(g1.g1_double(tp), g1.g1_double_plain(tp)):
+    dbl = g1.g1_double_plain(tp)
+    for x, y in zip(g1.g1_double(tp), dbl):
         assert torch.equal(x, y)
+    for n in (1, 3, 5, 65):                      # K3's four lanes: ragged N
+        head = lambda pt: tuple(c[:n] for c in pt)  # noqa: E731
+        for x, y in zip(g1.g1_double(head(tp)), head(dbl)):
+            assert torch.equal(x, y)
 
 
 def test_k4_matches_plain(card):
@@ -113,6 +118,13 @@ def test_k5_k6_k7_match_plain(card):
     for inverse in (False, True):
         tw = col_twiddles(8, inverse, card)
         assert torch.equal(ntt.ntt_cols(x, tw), ntt.ntt_cols_plain(x, tw))
+    for log_n1 in (1, 2, 12):                    # one pass at R = n1; the largest column
+        z = FR.encode(rand_ints(rng, FR.p, 3 << log_n1), device=card).view(1 << log_n1, 3, 16)
+        for inverse in (False, True):
+            tw = col_twiddles(log_n1, inverse, card)
+            for cols in (1, 3):
+                assert torch.equal(ntt.ntt_cols(z[:, :cols], tw),
+                                   ntt.ntt_cols_plain(z[:, :cols], tw))
     y = FR.encode(rand_ints(rng, FR.p, 1 << 12), device=card)
     assert torch.equal(ntt_fused(y, 12), NttDomain(12).ntt(y))
 
