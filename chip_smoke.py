@@ -35,16 +35,36 @@
    at each width the path used, so that its loss (launches × (device ms −
    bound)) is summed width by width.
    The warm prove's device-busy time is read from the profiler's timeline.
+   Then the same withdraw statement through engine="sorted" (the path a
+   key whose fixed tables exceed the budget takes) must give the fixed
+   engine's proof.
 4. Proves the depth-2 withdraw statement below with fixed seeds and holds
    the proof's digest against DEPTH2_DIGEST, which tests/test_torch_pool.py
    computes from the JAX package and asserts.
-5. The NTT at 2^20 (NttDomain(20), seeded input): the K5 stage ladder and
+5. The deposit proof (301 constraints): setup on the card, a first prove
+   and WARM_PROVES warm proves through the fixed engine (latency and
+   proofs/s), verify accepts and a tampered commitment, amount or token is
+   rejected, the proof's digest equals DEPOSIT_DIGEST (asserted from the JAX
+   package by tests/test_torch_deposit.py) through the fixed, lane and
+   sorted engines; launches per kernel and the device-busy time of a warm
+   prove.  The setup and first prove must launch K1–K3, the G2 kernels and
+   K5.
+6. The G1 MSM at 2^22 through `ops.msm.msm` (which routes to msm_sorted at
+   c = 16): 1024 multiples k·G tiled, seeded scalars below r; the result
+   after to_affine must equal (Σ s_i·k_i mod r)·G; timed twice after the
+   first run (host clock), with its device-busy time, peak memory and
+   launches by kernel and width (K1's subtraction, K2 and K3 must be > 0),
+   and once with the reference's 128-word gather rows.  Then the lane
+   engine at 2^16, msm_sorted at c = 8 on 2^16 points, G2 msm_sorted at 2^12
+   and the G2 lane engine at 2^10 against the same host sums, and the
+   loss of K1, K2 and K3 at each width the 2^22 MSM used.
+7. The NTT at 2^20 (NttDomain(20), seeded input): the K5 stage ladder and
    the fused K7 path give equal transforms, the inverse of each returns the
    input, both equal the host oracle at 2^10, and the 2^12 transform of a
    seeded input matches NTT_DIGEST; launch counts zeroed before, K5 and K7
    must be > 0; the fused transform's device-busy time must be > 0, and it
    is split by kernel (K7, the K1 correction multiply, the transpose copy).
-6. The dense MiMC tree over 2^20 seeded leaves: build_levels (one K6 launch
+8. The dense MiMC tree over 2^20 seeded leaves: build_levels (one K6 launch
    per level), every level against the plain twins applied to the level
    below (one twin call over all nodes, so the root is the twins' root), 1024
    authentication paths accepted and a tampered leaf rejected, and the root
@@ -52,7 +72,7 @@
    level's K6 launch is timed alone (CUDA events) beside its bound, and the
    device-busy time of one tree (profiler timeline) must agree with the sum
    of the levels' times within 5 %.
-7. Prints the `kernels` JSON line, then the result line.
+9. Prints the `kernels` JSON line, then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device, when the
 package is missing, or when any check fails.
@@ -88,6 +108,21 @@ def depth2_deposits(commitment_of):
                         DEPTH2_NOTE["amount"], DEPTH2_NOTE["token"])
     coms = [DEPTH2_FILLERS[0], com, DEPTH2_FILLERS[1]]
     return coms, [0xD2_0000 + i for i in range(3)], [0, DEPTH2_NOTE["amount"], 0]
+
+
+# The deposit statement (shared with tests/test_torch_deposit.py, which
+# computes DEPOSIT_DIGEST from the JAX package and asserts it)
+DEPOSIT_SETUP_SEED = b"owshen-tpu-deposit"
+DEPOSIT_PROVE_SEED = b"chip-smoke-deposit"
+DEPOSIT_NOTE = {"secret": 0xDE9051, "salt": 0x5A17D, "amount": 7 * 10 ** 17, "token": 0xA11CE}
+DEPOSIT_DIGEST = "c19d2ae2a59b2c36fd324be5615050fd3dcbcd296dfddc48296e891655e9c9f7"
+
+
+def deposit_publics(commitment_of) -> list[int]:
+    """[commitment, amount, token] of the deposit statement."""
+    n = DEPOSIT_NOTE
+    return [commitment_of(n["secret"], n["salt"], n["amount"], n["token"]), n["amount"],
+            n["token"]]
 
 
 # The NTT and dense-MiMC references (shared with tests/test_torch_ntt_kernels.py,
@@ -823,22 +858,50 @@ def round_trip_depth16(torch, dev) -> dict:
     print("d16 launches by width, {width: [launches, items]}: "
           + json.dumps({k: widths[k] for k in WIDTH_KERNELS}), flush=True)
     return {"stages": stages, "launches": counts, "launches_by_stage": per_stage,
-            "widths": widths}
+            "widths": widths, "pool": pool, "builder": builder}
 
 
-def width_losses(torch, dev, widths) -> dict:
-    """The loss of K1 (with its G2 add) and K2 on the depth-16 path, width
-    by width: each width bucket's kernel timed on the card (profiler) at the
-    bucket's mean width, beside its bound; loss = launches × (device ms −
-    bound)."""
+def sorted_withdraw(torch, dev, pool, builder) -> dict:
+    """The depth-16 withdraw proof through engine="sorted" (the path a key
+    whose fixed tables exceed the budget takes) against the fixed engine's
+    proof under the same seed: the proofs are affine points, so they must
+    be equal."""
+    from owshen_tpu_torch import kernels
+    from owshen_tpu_torch.groth16 import groth16
+
+    seed = b"chip-smoke-d16-sorted"
+    out = {}
+    t = time.time()
+    fixed = groth16.prove(pool.pk, builder, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    out["fixed_s"] = time.time() - t
+    kernels.reset_launches()
+    t = time.time()
+    srt = groth16.prove(pool.pk, builder, seed=seed, engine="sorted", device=dev)
+    torch.cuda.synchronize()
+    out["sorted_s"] = time.time() - t
+    out["launches"] = nonzero(kernels.launch_counts())
+    if (srt.a, srt.b, srt.c) != (fixed.a, fixed.b, fixed.c):
+        fail("depth-16: the sorted engine's proof differs from the fixed engine's")
+    print(f"d16 prove through engine='sorted' == fixed ({out['sorted_s']:.2f} s, fixed "
+          f"{out['fixed_s']:.2f} s); launches " + json.dumps(out["launches"]), flush=True)
+    return out
+
+
+def width_losses(torch, dev, widths, names=LOSS_KERNELS, label="depth-16") -> dict:
+    """The loss of the kernels `names` on a path, width by width: each width
+    bucket's kernel timed on the card (profiler) at the bucket's mean width,
+    beside its bound; loss = launches × (device ms − bound)."""
     from owshen_tpu_torch.kernels import field_ops, g1, g2
     from owshen_tpu_torch.oracle.field import P_FQ
 
+    names = [name for name in names if widths[name]]
     gen = torch.Generator().manual_seed(16)
-    widest = max(w for name in LOSS_KERNELS if name != "g2_add" for w in widths[name])
+    g1_names = [name for name in names if name != "g2_add"]
+    widest = max([4] + [w for name in g1_names for w in widths[name]])
     a, b = (rand_field(torch, gen, P_FQ, widest, dev) for _ in range(2))
     p, q = (tuple(rand_field(torch, gen, P_FQ, widest, dev) for _ in range(3)) for _ in range(2))
-    w2 = max(widths["g2_add"])
+    w2 = max([4] + list(widths["g2_add"]))
     p2, q2 = (tuple(rand_field(torch, gen, P_FQ, 2 * w2, dev).view(w2, 2, 16) for _ in range(3))
               for _ in range(2))
     calls = {
@@ -846,10 +909,11 @@ def width_losses(torch, dev, widths) -> dict:
         "mod_add": lambda n: field_ops.mod_add(a[:n], b[:n], "fq"),
         "mod_sub": lambda n: field_ops.mod_sub(a[:n], b[:n], "fq"),
         "g1_add": lambda n: g1.g1_add(tuple(c[:n] for c in p), tuple(c[:n] for c in q)),
+        "g1_double": lambda n: g1.g1_double(tuple(c[:n] for c in p)),
         "g2_add": lambda n: g2.g2_add(tuple(c[:n] for c in p2), tuple(c[:n] for c in q2)),
     }
     out = {}
-    for name in LOSS_KERNELS:
+    for name in names:
         rows = []
         for width, (count, items) in widths[name].items():
             n = max(1, round(items / count))
@@ -858,7 +922,7 @@ def width_losses(torch, dev, widths) -> dict:
             rows.append({"width": width, "launches": count, "n": n, "ms": ms, "bound_ms": b_ms,
                          "loss_ms": count * max(0.0, ms - b_ms)})
         out[name] = {"loss_ms": sum(r["loss_ms"] for r in rows), "by_width": rows}
-        print(f"{name} on the depth-16 path: loss {out[name]['loss_ms']:.3f} ms; [width, "
+        print(f"{name} on the {label} path: loss {out[name]['loss_ms']:.3f} ms; [width, "
               f"launches, mean n, device ms, bound ms]: "
               + json.dumps([[r["width"], r["launches"], r["n"], round(r["ms"], 5),
                              round(r["bound_ms"], 5)] for r in rows]), flush=True)
@@ -895,7 +959,278 @@ def depth2_digest(dev) -> str:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the NTT at 2^20 (K5 ladder and K7 fused)
+# Phase 5: the deposit proof through the fixed, lane and sorted engines
+# ---------------------------------------------------------------------------
+
+# the kernels the deposit prove must launch (setup and first prove)
+DEPOSIT_KERNELS = ("mont_mul", "mod_add", "mod_sub", "g1_add", "g1_double", "g2_add",
+                   "g2_double", "ntt_butterfly")
+WARM_PROVES = 8
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def deposit_digest(dev) -> str:
+    """The digest of the deposit proof under the fixed seeds (fixed engine)."""
+    from owshen_tpu_torch.circuits import pool as circuits
+    from owshen_tpu_torch.groth16 import groth16
+
+    pk, _ = groth16.setup(circuits.deposit_circuit(), seed=DEPOSIT_SETUP_SEED, device=dev)
+    builder = circuits.deposit_circuit(circuits.DepositWitness(**DEPOSIT_NOTE))
+    return proof_digest(groth16.prove(pk, builder, seed=DEPOSIT_PROVE_SEED, device=dev))
+
+
+def deposit_phase(torch, dev) -> dict:
+    from owshen_tpu_torch import kernels
+    from owshen_tpu_torch.circuits import pool as circuits
+    from owshen_tpu_torch.fields.field import FR
+    from owshen_tpu_torch.groth16 import groth16
+
+    out = {}
+    builder = circuits.deposit_circuit(circuits.DepositWitness(**DEPOSIT_NOTE))
+    pub = deposit_publics(circuits.commitment_of)
+    kernels.reset_launches()
+    t = time.time()
+    pk, vk = groth16.setup(circuits.deposit_circuit(), seed=DEPOSIT_SETUP_SEED, device=dev)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.time() - t
+    t = time.time()
+    proof = groth16.prove(pk, builder, seed=DEPOSIT_PROVE_SEED, device=dev)
+    torch.cuda.synchronize()
+    out["first_prove_s"] = time.time() - t
+    out["launches"] = kernels.launch_counts()
+    for name in DEPOSIT_KERNELS:
+        if out["launches"][name] <= 0:
+            fail(f"kernel {name} was not launched by the deposit setup and prove")
+    print(f"deposit ({len(builder.constraints)} constraints, n_domain {pk.n_domain}): setup "
+          f"{out['setup_s']:.2f} s, first prove (builds tables) {out['first_prove_s']:.2f} s; "
+          f"launches " + json.dumps(nonzero(out["launches"])), flush=True)
+    digest = proof_digest(proof)
+    if digest != DEPOSIT_DIGEST:
+        fail(f"deposit proof digest {digest} != JAX reference {DEPOSIT_DIGEST}")
+    if not groth16.verify(vk, pub, proof):
+        fail("the deposit proof did not verify")
+    for i, what in enumerate(("commitment", "amount", "token")):
+        bad = list(pub)
+        bad[i] = (bad[i] + 1) % FR.p
+        if groth16.verify(vk, bad, proof):
+            fail(f"the deposit proof verified with a tampered {what}")
+    print("deposit digest matches; verify accepts, a tampered commitment, amount and token "
+          "are rejected", flush=True)
+
+    warm = []
+    for _ in range(WARM_PROVES):
+        t = time.time()
+        groth16.prove(pk, builder, device=dev)
+        torch.cuda.synchronize()
+        warm.append(time.time() - t)
+    out["warm_prove_s"] = warm
+    out["warm_proofs_per_s"] = len(warm) / sum(warm)
+    kernels.reset_launches()
+    groth16.prove(pk, builder, device=dev)
+    torch.cuda.synchronize()
+    out["warm_launches"] = nonzero(kernels.launch_counts())
+    out["warm_widths"] = {k: v for k, v in kernels.launch_widths().items() if v}
+    wall, busy, events = device_busy(torch, lambda: groth16.prove(pk, builder, device=dev))
+    out["warm_profiled_s"], out["warm_busy_s"] = wall, busy
+    out["warm_split"] = spans_by_kernel(events)
+    print(f"deposit warm prove: {json.dumps([round(x, 4) for x in warm])} s, "
+          f"{out['warm_proofs_per_s']:.2f} proofs/s; under the profiler {wall:.3f} s, device "
+          f"busy {busy:.4f} s (idle {100 * (1 - busy / wall):.1f} %); launches "
+          + json.dumps(out["warm_launches"]), flush=True)
+
+    for engine in ("lane", "sorted"):
+        kernels.reset_launches()
+        t = time.time()
+        other = groth16.prove(pk, builder, seed=DEPOSIT_PROVE_SEED, engine=engine, device=dev)
+        torch.cuda.synchronize()
+        out[f"{engine}_prove_s"] = [time.time() - t]
+        out[f"{engine}_launches"] = nonzero(kernels.launch_counts())
+        if proof_digest(other) != DEPOSIT_DIGEST:
+            fail(f"the deposit proof through engine={engine!r} differs from the reference")
+        t = time.time()
+        groth16.prove(pk, builder, seed=DEPOSIT_PROVE_SEED, engine=engine, device=dev)
+        torch.cuda.synchronize()
+        out[f"{engine}_prove_s"].append(time.time() - t)
+        print(f"deposit through engine={engine!r}: digest matches; "
+              f"{json.dumps([round(x, 3) for x in out[f'{engine}_prove_s']])} s; launches "
+              + json.dumps(out[f"{engine}_launches"]), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the Pippenger MSMs (2^22 G1 through msm_sorted, the lane engine)
+# ---------------------------------------------------------------------------
+
+MSM_LOG_N = 22
+MSM_BASES = 1024            # bench.py: multiples k·G, k = 1 … 1024, tiled
+MSM_KERNELS = ("mod_sub", "g1_add", "g1_double")
+
+
+def msm_inputs(torch, dev, group: str, n: int, seed: int):
+    """(points, scalars, want): MSM_BASES multiples k·gen tiled to n points,
+    seeded canonical scalars below r (0, 1, r − 1, r − 2 first), and the
+    host's (Σ s_i·k_i mod r)·gen, from limb sums on the card (each < 2^48)."""
+    from owshen_tpu_torch.curves import bn254
+    from owshen_tpu_torch.oracle import curve as ocurve
+    from owshen_tpu_torch.oracle.field import P_FR
+
+    curve, gen, encode = {"g1": (ocurve.G1, ocurve.G1_GEN, bn254.g1_encode),
+                          "g2": (ocurve.G2, ocurve.G2_GEN, bn254.g2_encode)}[group]
+    mults = [gen]
+    for _ in range(MSM_BASES - 1):
+        mults.append(curve.add(mults[-1], gen))
+    base = encode(mults, device=dev)
+    points = tuple(a.repeat((n // MSM_BASES,) + (1,) * (a.dim() - 1)) for a in base)
+    scalars = rand_field(torch, torch.Generator().manual_seed(seed), P_FR, n, dev)
+    k = torch.arange(n, device=dev) % MSM_BASES + 1
+    sums = (scalars.to(torch.int64) * k[:, None]).sum(0).tolist()
+    return points, scalars, curve.mul(gen, sum(v << (16 * j) for j, v in enumerate(sums)) % P_FR)
+
+
+def msm_affine(group: str, pt):
+    """One projective result in affine form: over G1 through to_affine on
+    the card (the identity as (0, 0)), over G2 decoded on the host."""
+    from owshen_tpu_torch.curves import bn254
+    from owshen_tpu_torch.fields.field import FQ
+
+    if group == "g2":
+        return bn254.g2_decode_host(tuple(a[None] for a in pt))
+    x, y = bn254.G1.to_affine(pt)
+    xy = (FQ.decode(x[None])[0], FQ.decode(y[None])[0])
+    return None if xy == (0, 0) else xy
+
+
+def timed(torch, fn):
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t
+
+
+def msm_path_checks(torch, pts, scalars) -> tuple[dict, set]:
+    """K1, K2 and K3 against their plain versions at every width the 2^22
+    MSM launches them, on its own operands: one window's gathered y
+    (mod_sub, 2^22 elements), a chunk step's (running sum, row q) (g1_add,
+    C = 2^15 points), the two halves of the boundary prefixes that
+    total_sum_wide folds (g1_add, 2^14), and the Horner's single points
+    (g1_double, g1_add, the closing negation's mod_sub).  Fails on any
+    difference; returns the errors and the (kernel, width) pairs held."""
+    from owshen_tpu_torch.config import settings
+    from owshen_tpu_torch.curves import bn254
+    from owshen_tpu_torch.kernels import field_ops, g1
+    from owshen_tpu_torch.ops import msm as pmsm
+
+    G1, K = bn254.G1, bn254.G1.K
+    c, n = settings().msm_window_bits, scalars.shape[0]
+    m, C = 1 << (c - 1), min(settings().msm_chunk_c, n // 4)
+    Q = n // C
+    errs, held = {}, set()
+
+    def check(name, width, note, got, want):
+        errs[f"{name} n={width}{note}"] = max_abs_err(torch, got, want)
+        held.add((name, width))
+
+    mag, sgn = pmsm._signed_digits(scalars, c)
+    rows, widths, shapes = pmsm._point_rows(pts, settings().msm_gather_pad)
+    w = mag.shape[0] - 2                 # the second window, with digits of both signs
+    (x, y, z), neg, skeys = pmsm._gather_window(rows, widths, shapes, mag[w], sgn[w], C, Q)
+    del rows
+    zero = torch.zeros_like(y)
+    check("mod_sub", y.shape[0], " (a window's y)", field_ops.mod_sub(zero, y, "fq"),
+          field_ops.mod_sub_plain(zero, y, "fq"))
+    xyz = (x, K.select(neg, K.neg(y), y), z)
+    del zero, y
+    seq = tuple(a.view((Q, C) + a.shape[1:]) for a in xyz)
+    q = 3
+    acc = tuple(a[0] for a in seq)
+    for i in range(1, q):
+        acc = G1.add(acc, tuple(a[i] for a in seq))
+    row = tuple(a[q] for a in seq)
+    check("g1_add", C, f" (chunk step {q})", g1.g1_add(acc, row), g1.g1_add_plain(acc, row))
+    total, s_j = pmsm._window_prefixes(G1, xyz, skeys, C, Q, m)
+    del xyz, seq
+    h = m // 2
+    lo, hi = tuple(a[:h] for a in s_j), tuple(a[h:] for a in s_j)
+    check("g1_add", h, " (total_sum_wide fold)", g1.g1_add(lo, hi), g1.g1_add_plain(lo, hi))
+    one = tuple(a[None] for a in total)
+    check("g1_double", 1, "", g1.g1_double(one), g1.g1_double_plain(one))
+    dbl = G1.double(one)
+    check("g1_add", 1, "", g1.g1_add(dbl, one), g1.g1_add_plain(dbl, one))
+    y1 = one[1].reshape(-1, 16)
+    check("mod_sub", 1, "", field_ops.mod_sub(torch.zeros_like(y1), y1, "fq"),
+          field_ops.mod_sub_plain(torch.zeros_like(y1), y1, "fq"))
+    print("msm 2^22 kernels against their plain versions on the path's operands, max |diff|: "
+          + json.dumps(errs), flush=True)
+    for case, err in errs.items():
+        if err != 0:
+            fail(f"msm 2^22 path ({case}): kernel disagrees with its plain version")
+    return errs, held
+
+
+def msm_phase(torch, dev) -> dict:
+    from owshen_tpu_torch import kernels
+    from owshen_tpu_torch.curves import bn254
+    from owshen_tpu_torch.ops import msm as pmsm
+
+    G1, G2 = bn254.G1, bn254.G2
+    n = 1 << MSM_LOG_N
+    out = {"n": n}
+    (pts, scalars, want), out["inputs_s"] = timed(
+        torch, lambda: msm_inputs(torch, dev, "g1", n, MSM_LOG_N))
+    run = lambda: pmsm.msm(G1, pts, scalars)  # noqa: E731  (routes to msm_sorted, c = 16)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    got, out["first_s"] = timed(torch, run)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["launches"] = kernels.launch_counts()
+    out["widths"] = kernels.launch_widths()
+    for name in MSM_KERNELS:
+        if out["launches"][name] <= 0:
+            fail(f"kernel {name} was not launched by the 2^22 MSM")
+    if msm_affine("g1", got) != want:
+        fail("MSM 2^22: msm differs from (Σ s_i·k_i mod r)·G")
+    out["path_checks"], held = msm_path_checks(torch, pts, scalars)
+    unheld = sorted({(k, int(wd)) for k in MSM_KERNELS for wd in out["widths"][k]} - held)
+    if unheld:
+        fail(f"MSM 2^22: kernel widths not held against their plain versions: {unheld}")
+    out["s"] = [timed(torch, run)[1] for _ in range(2)]
+    out["mpoints_per_s"] = [n / t / 1e6 for t in out["s"]]
+    wall, busy, events = device_busy(torch, run)
+    out["profiled_s"], out["busy_s"] = wall, busy
+    out["split"] = spans_by_kernel(events)
+    print(f"msm 2^22 (G1, msm_sorted c=16): == (Σ s_i·k_i mod r)·G; first {out['first_s']:.3f} "
+          f"s, then {json.dumps([round(t, 4) for t in out['s']])} s = "
+          f"{json.dumps([round(r, 2) for r in out['mpoints_per_s']])} Mpoints/s; peak "
+          f"{out['peak_bytes'] / 2 ** 30:.2f} GiB; under the profiler {wall:.3f} s, device "
+          f"busy {busy:.4f} s (idle {100 * (1 - busy / wall):.1f} %)", flush=True)
+    print("msm 2^22 launches: " + json.dumps(nonzero(out["launches"])) + "; by width "
+          "{width: [launches, items]}: "
+          + json.dumps({k: out["widths"][k] for k in MSM_KERNELS}), flush=True)
+    print("msm 2^22 [spans, device ms] by kernel: " + json.dumps(out["split"]), flush=True)
+    del pts, scalars
+
+    checks = {}
+    for label, group, log_n, call in (
+            ("g1 msm 2^16 (lane)", "g1", 16, lambda p, s: pmsm.msm(G1, p, s)),
+            ("g1 msm_sorted c=8 2^16", "g1", 16, lambda p, s: pmsm.msm_sorted(G1, p, s, c=8)),
+            ("g2 msm_sorted 2^12", "g2", 12, lambda p, s: pmsm.msm_sorted(G2, p, s)),
+            ("g2 msm 2^10 (lane)", "g2", 10, lambda p, s: pmsm.msm(G2, p, s))):
+        p, s, want = msm_inputs(torch, dev, group, 1 << log_n, log_n)
+        got, first = timed(torch, lambda: call(p, s))
+        if msm_affine(group, got) != want:
+            fail(f"{label}: differs from (Σ s_i·k_i mod r)·gen")
+        checks[label] = {"first_s": first, "s": timed(torch, lambda: call(p, s))[1]}
+    out["checks"] = checks
+    print("msm checks == (Σ s_i·k_i mod r)·gen, seconds: " + json.dumps(checks), flush=True)
+    out["losses"] = width_losses(torch, dev, out["widths"], MSM_KERNELS, "2^22 MSM")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the NTT at 2^20 (K5 ladder and K7 fused)
 # ---------------------------------------------------------------------------
 
 def ntt_phase(torch, dev) -> dict:
@@ -972,7 +1307,7 @@ def ntt_phase(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: the dense MiMC tree over 2^20 leaves (K6)
+# Phase 8: the dense MiMC tree over 2^20 leaves (K6)
 # ---------------------------------------------------------------------------
 
 def level_times(torch, levels, reps: int) -> list[dict]:
@@ -1107,12 +1442,15 @@ def main() -> int:
     kern = check_kernels(torch, dev)
     trip = round_trip_depth16(torch, dev)
     losses = width_losses(torch, dev, trip["widths"])
+    withdraw_sorted = sorted_withdraw(torch, dev, trip.pop("pool"), trip.pop("builder"))
 
     t = time.time()
     digest = depth2_digest(dev)
     print(f"d2 digest {digest} ({time.time() - t:.2f} s)", flush=True)
     if digest != DEPTH2_DIGEST:
         fail(f"depth-2 proof digest {digest} != JAX reference {DEPTH2_DIGEST}")
+    deposit = deposit_phase(torch, dev)
+    msmp = msm_phase(torch, dev)
     nttp = ntt_phase(torch, dev)
     mimcp = mimc_phase(torch, dev)
 
@@ -1144,7 +1482,12 @@ def main() -> int:
         "ntt_2_20": {k: v for k, v in nttp.items() if k != "launches"},
         "mimc_hash2_checks": {k: kern["mimc_hash2"][k] for k in ("cases", "sass")},
         "mimc_2_20": {k: v for k, v in mimcp.items() if k != "launches"},
-        "launches_by_phase": {"depth16": trip["launches"], "ntt_2_20": nttp["launches"],
+        "deposit": {k: v for k, v in deposit.items() if k != "launches"},
+        "msm_2_22": {k: v for k, v in msmp.items() if k not in ("launches", "widths")},
+        "msm_2_22_widths": {k: msmp["widths"][k] for k in MSM_KERNELS},
+        "withdraw_d16_sorted": withdraw_sorted,
+        "launches_by_phase": {"depth16": trip["launches"], "deposit": deposit["launches"],
+                              "msm_2_22": msmp["launches"], "ntt_2_20": nttp["launches"],
                               "mimc_2_20": mimcp["launches"]},
         "card": smi, "total_s": time.time() - t_start}
     print(json.dumps(line), flush=True)

@@ -12,12 +12,13 @@ nonetheless fixes their semantics:
     (reference: src/blockchain/tx/burn_tx.rs:11-32 and the `isExecuted[id]`
     guard in contracts/src/Owshen.sol:66-78).
 
-The withdraw circuit proves membership of a commitment to hidden (secret,
-salt) under the pool's Merkle root and exposes a deterministic nullifier —
-the circuit-level burn_id — plus binds the recipient so a voucher cannot be
-front-run.  The hash is the Poseidon of ops/hash.py (identical constants =>
-in-circuit and on-card values match bit-exactly).  The deposit circuit
-waits for a later slice: the pool's deposit path proves nothing.
+The deposit circuit binds a commitment to hidden (secret, salt); the
+withdraw circuit proves membership of such a commitment under the pool's
+Merkle root and exposes a deterministic nullifier — the circuit-level
+burn_id — plus binds the recipient so a voucher cannot be front-run.  The
+hash is the Poseidon of ops/hash.py (identical constants => in-circuit and
+on-card values match bit-exactly).  As in the reference, the pool's
+deposit path proves nothing: a deposit proof is the wallet's to make.
 """
 
 from __future__ import annotations
@@ -44,6 +45,30 @@ def commitment_of(secret: int, salt: int, amount: int, token: int = 0) -> int:
 def nullifier_of(secret: int, index: int) -> int:
     """Host-side nullifier — the replay guard (burn_id analogue)."""
     return ohash.poseidon([secret, index])
+
+
+@dataclass
+class DepositWitness:
+    secret: int
+    salt: int
+    amount: int
+    token: int = 0
+
+
+def deposit_circuit(w: DepositWitness | None = None) -> Builder:
+    """Public: [commitment, amount, token].  Proves knowledge of
+    (secret, salt) with commitment = Poseidon(secret, salt, amount, token)."""
+    b = Builder()
+    have = w is not None
+    com_v = commitment_of(w.secret, w.salt, w.amount, w.token) if have else None
+    com = b.pub(com_v)
+    amount = b.pub(w.amount if have else None)
+    token = b.pub(w.token if have else None)
+    secret = b.priv(w.secret if have else None)
+    salt = b.priv(w.salt if have else None)
+    out = poseidon_gadget(b, [secret, salt, amount, token])
+    b.enforce_eq(out, com)
+    return b
 
 
 @dataclass

@@ -47,6 +47,35 @@ class Weierstrass:
     def select(self, cond, p, q):
         return tuple(self.K.select(cond, a, b) for a, b in zip(p, q))
 
+    def scalar_mul(self, p, bits):
+        """Batched double-and-add over the MSB-first bit array bits[n_bits,
+        ...]: per bit one double, one add and a select (branchless, as in
+        the reference)."""
+        acc = self.identity_like(p[0])
+        for bit in bits:
+            acc = self.double(acc)
+            acc = self.select(bit != 0, self.add(acc, p), acc)
+        return acc
+
+    def to_affine(self, p):
+        """(X/Z, Y/Z) with the identity mapped to (0, 0), one Fermat
+        inversion of Z on K1.  Over Fq (G1) only: the port has no batched
+        Fq2 product, and decodes G2 points on the host
+        (bn254.g2_decode_many)."""
+        X, Y, Z = p
+        zinv = self.K.inv(Z)
+        return (self.K.mul(X, zinv), self.K.mul(Y, zinv))
+
+    def sum_reduce(self, p, axis: int = 0):
+        """EC sum along `axis` as a halving tree (⌈log₂ n⌉ wide adds; an
+        odd count's last row waits a level)."""
+        pts = tuple(torch.movedim(a, axis, 0) for a in p)
+        while pts[0].shape[0] > 1:
+            n, h = pts[0].shape[0], pts[0].shape[0] // 2
+            s = self.add(tuple(a[:h] for a in pts), tuple(a[h:2 * h] for a in pts))
+            pts = tuple(torch.cat([x, a[2 * h:]]) for x, a in zip(s, pts)) if n % 2 else s
+        return tuple(a[0] for a in pts)
+
     def cat(self, pts, dim: int = 0):
         """Concatenate point batches along a leading axis."""
         return tuple(torch.cat(leaves, dim=dim) for leaves in zip(*pts))

@@ -7,8 +7,9 @@ limb.  Every limb is < 2^16, so int32 holds it without sign trouble.
 
 `mul`, `add` and `sub` go through the K1 wrappers (kernels/field_ops.py):
 on a CUDA tensor they launch the hand-written kernel, on a CPU tensor they
-run its plain twin.  Everything else here is composed from them or is a
-plain tensor op (select, compare).
+run its plain twin.  Everything else here is composed from them (`pow_const`
+and `inv` are square-and-multiply chains of K1 products) or is a plain
+tensor op (select, compare, bits).
 """
 
 from __future__ import annotations
@@ -133,6 +134,31 @@ class Field:
 
     def one_like(self, a):
         return self.const(1, device=a.device).expand(a.shape).clone()
+
+    # ---------- exponentiation ----------
+
+    def pow_const(self, x, exp: int):
+        """x ** exp for a fixed Python-int exponent, MSB first: one square
+        per bit and one product per set bit (the exponent is known on the
+        host, so the reference's select of the product is a branch here)."""
+        acc = self.one_like(x)
+        for bit in bin(exp)[2:] if exp > 0 else ():
+            acc = self.sqr(acc)
+            if bit == "1":
+                acc = self.mul(acc, x)
+        return acc
+
+    def inv(self, x):
+        """Batched inverse by Fermat, x^(p − 2); inv(0) = 0."""
+        return self.pow_const(x, self.p - 2)
+
+    # ---------- misc ----------
+
+    def to_bits_le(self, a, n_bits: int | None = None):
+        """Canonical (non-Montgomery) limbs -> int32[..., n_bits] of 0/1,
+        least significant bit first."""
+        i = torch.arange(n_bits or W * self.L, device=a.device)
+        return (a[..., i // W] >> (i % W)) & 1
 
 
 FR = Field("fr", P_FR)

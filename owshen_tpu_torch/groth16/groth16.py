@@ -5,8 +5,10 @@ owshen_tpu/groth16/groth16.py, with the prover's hot path on the card.
   * A·w, B·w, C·w: sparse matvec over nnz-bucketed rows (K1);
   * h(x) = intt_coset((A·B − C)·Z⁻¹): NTTs over the domain (K1);
   * commitments: the fixed-table MSM engine (ops/msm_fixed.py) — one
-    gather and one batched fold for the five G1 MSMs (K2), the G2 MSM
-    composed from K1, and the assembly adds;
+    gather and one batched fold for the five G1 MSMs (K2), the G2 MSM on
+    the G2 add kernel, and the assembly adds — or, by choice or when the
+    tables do not fit, the Pippenger engines of ops/msm.py with scalar
+    ladders for the randomizer terms;
   * setup points: fixed-base windowed multiplication (K2, K1);
   * verification: host pairing product (groth16/pairing.py).
 
@@ -28,6 +30,7 @@ from ..config import resolve_device, settings
 from ..curves import bn254
 from ..curves.fixed_base import g1_fixed_base, g2_fixed_base
 from ..fields.field import FR, ints_to_tensor
+from ..ops.msm import _pad_identity, msm, msm_sorted
 from ..ops.msm_fixed import FixedMsm, FixedMsmGroup
 from ..ops.ntt import NttDomain
 from ..oracle import curve as ocurve
@@ -327,9 +330,20 @@ def _device_mats(mats, device):
                        for rids, idx, coeff in mat) for mat in mats)
 
 
-def _check_engine(pk: ProvingKey, mesh, engine: str | None) -> None:
-    """Raise for an engine the reference does not know (ValueError) and for
-    one the port cannot serve yet (NotImplementedError), before any work."""
+def _fixed_tables_fit(pk: ProvingKey) -> bool:
+    """True when the key's fixed tables are built or fit the card budget
+    (OWSHEN_FIXED_TABLE_MAX_GB); past it the prover takes the sorted engine
+    instead of running out of memory, as the reference does."""
+    if getattr(pk, "_fixed", None) is not None:
+        return True
+    return _fixed_table_bytes(pk) <= settings().fixed_table_max_gb * (1 << 30)
+
+
+def _resolve_engine(pk: ProvingKey, mesh, engine: str | None) -> str:
+    """The engine a prove runs: `engine`, or OWSHEN_PROVER_ENGINE when None,
+    with "fixed" sent to "sorted" when the key's tables do not fit.  An
+    engine the reference does not know is a ValueError and a `mesh` a
+    NotImplementedError, both before any work."""
     if engine is None:
         engine = settings().prover_engine
     if engine not in ("fixed", "lane", "sorted"):
@@ -337,15 +351,67 @@ def _check_engine(pk: ProvingKey, mesh, engine: str | None) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "the multi-device prover (mesh) is not ported yet (ROADMAP queue 1 item 6)")
-    if engine != "fixed":
-        raise NotImplementedError(
-            f"the {engine!r} Pippenger engine is not ported yet (ROADMAP queue 1 item 2)")
-    limit = settings().fixed_table_max_gb
-    if getattr(pk, "_fixed", None) is None and _fixed_table_bytes(pk) > limit * (1 << 30):
-        raise NotImplementedError(
-            f"fixed prover tables need {_fixed_table_bytes(pk) / (1 << 30):.1f} GiB, over "
-            f"the {limit} GiB budget (OWSHEN_FIXED_TABLE_MAX_GB); the reference falls back "
-            f"to its 'sorted' engine there, which is not ported yet (ROADMAP queue 1 item 2)")
+    if engine == "fixed" and not _fixed_tables_fit(pk):
+        return "sorted"
+    return engine
+
+
+def _scale_point(curve, p, k: int):
+    """k · p for one projective point: the 254-bit double-and-add ladder."""
+    bits = FR.to_bits_le(ints_to_tensor([k % P], p[0].device), 254)[0]
+    return curve.scalar_mul(p, bits.flip(0))
+
+
+def _scale_first(curve, pts, k: int):
+    """k · pts[0] (the single point of a batch of one)."""
+    return _scale_point(curve, tuple(a[0] for a in pts), k)
+
+
+def _msm_engine(curve, engine: str, msm_c: int, msm_lanes: int):
+    """The legacy engines' MSM: "lane" is `msm` (c = msm_c, msm_lanes
+    lanes), "sorted" (or OWSHEN_PROVER_SORTED_MSM=1) `msm_sorted` at c = 8.
+    Every batch is padded with identities to a power of two ≥ 2^9 points,
+    as in the reference (there, so that the MSMs share one compiled
+    shape)."""
+    use_sorted = engine == "sorted" or settings().prover_sorted_msm
+
+    def call(pts, sc):
+        pts, sc = _pad_identity(curve, pts, sc, 1 << max(9, (sc.shape[0] - 1).bit_length()))
+        if use_sorted:
+            return msm_sorted(curve, pts, sc, c=8)
+        return msm(curve, pts, sc, c=msm_c, lanes=msm_lanes)
+
+    return call
+
+
+def _prove_legacy(pk: ProvingKey, w: list[int], r: int, s: int, h_sc: torch.Tensor,
+                  engine: str, msm_c: int, msm_lanes: int) -> Proof:
+    """Commitments through the Pippenger engines, the reference's legacy
+    single-device path:
+      A = α + Σ w_i·A_i(τ) + r·δ,   B = β + Σ w_i·B_i(τ) + s·δ (G2 and G1),
+      C = Σ h_i·H_i + Σ_priv w_i·K_i + s·A + r·B₁ − r·s·δ,
+    the scalar multiples by 254-step double-and-add ladders on the card."""
+    G1, G2 = bn254.G1, bn254.G2
+    msm_g1 = _msm_engine(G1, engine, msm_c, msm_lanes)
+    msm_g2 = _msm_engine(G2, engine, msm_c, msm_lanes)
+    w_sc = FR.encode(w, mont=False, device=pk.device)
+    first = lambda pt: tuple(a[0] for a in pt)  # noqa: E731
+
+    a_acc = G1.add(msm_g1(pk.a_g1, w_sc), first(pk.alpha_g1))
+    a_acc = G1.add(a_acc, _scale_first(G1, pk.delta_g1, r))
+    b2_acc = G2.add(msm_g2(pk.b_g2, w_sc), first(pk.beta_g2))
+    b2_acc = G2.add(b2_acc, _scale_first(G2, pk.delta_g2, s))
+    b1_acc = G1.add(msm_g1(pk.b_g1, w_sc), first(pk.beta_g1))
+    b1_acc = G1.add(b1_acc, _scale_first(G1, pk.delta_g1, s))
+    c_acc = msm_g1(pk.h_g1, h_sc)
+    if pk.k_g1 is not None:
+        c_acc = G1.add(c_acc, msm_g1(pk.k_g1, w_sc[pk.n_pub:]))
+    c_acc = G1.add(c_acc, _scale_point(G1, a_acc, s))
+    c_acc = G1.add(c_acc, _scale_point(G1, b1_acc, r))
+    c_acc = G1.add(c_acc, _scale_first(G1, pk.delta_g1, (-r * s) % P))
+    one = lambda pt: tuple(a[None] for a in pt)  # noqa: E731
+    return Proof(a=bn254.g1_decode_host(one(a_acc)), b=bn254.g2_decode_host(one(b2_acc)),
+                 c=bn254.g1_decode_host(one(c_acc)))
 
 
 def prove(pk: ProvingKey, builder: Builder, seed: bytes | None = None,
@@ -359,13 +425,14 @@ def prove(pk: ProvingKey, builder: Builder, seed: bytes | None = None,
     knowledge collapses if they are predictable.  Pass an explicit `seed`
     only for reproducible tests.
 
-    engine: "fixed" (the fixed-table engine), "lane" or "sorted"; resolved
-    from OWSHEN_PROVER_ENGINE when None.  Only "fixed" is ported: the
-    others, a `mesh`, and fixed tables over OWSHEN_FIXED_TABLE_MAX_GB (which
-    the reference sends to "sorted") raise NotImplementedError.  `msm_c` and
-    `msm_lanes` tune the Pippenger engines; the fixed engine ignores them,
-    as in the reference."""
-    _check_engine(pk, mesh, engine)
+    engine: "fixed" (the fixed-table engine, the default), "lane" (`msm`)
+    or "sorted" (`msm_sorted` at c = 8); resolved from OWSHEN_PROVER_ENGINE
+    when None.  "fixed" with tables over OWSHEN_FIXED_TABLE_MAX_GB proves
+    through "sorted".  `msm_c` and `msm_lanes` tune the lane engine; the
+    others ignore them, as in the reference.  A `mesh` (the multi-device
+    prover) is not ported and raises NotImplementedError.  All engines give
+    the same proof for the same seed."""
+    engine = _resolve_engine(pk, mesh, engine)
     dev = resolve_device(device)
     if pk.device != dev:
         raise ValueError(f"proving key lives on {pk.device}, prove asked for {dev}")
@@ -377,7 +444,9 @@ def prove(pk: ProvingKey, builder: Builder, seed: bytes | None = None,
     mats = _device_mats(builder.compiled(n), dev)
     w_mont = FR.encode(w, device=dev)
     h_sc = _h_scalars_device(dom, w_mont, mats)[: n - 1]
-    return _prove_fixed(pk, w_mont, r, s, h_sc)
+    if engine == "fixed":
+        return _prove_fixed(pk, w_mont, r, s, h_sc)
+    return _prove_legacy(pk, w, r, s, h_sc, engine, msm_c, msm_lanes)
 
 
 def verify(vk: VerifyingKey, public_inputs: list[int], proof: Proof) -> bool:

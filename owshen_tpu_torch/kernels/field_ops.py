@@ -55,13 +55,19 @@ def plain_consts(field: str, device: torch.device) -> PlainConsts:
 def ripple(t: torch.Tensor) -> torch.Tensor:
     """Carry-propagate (K, ...) int64 columns in place into 16-bit limbs and
     return the carry out of the top row (negative for a borrow: the shift
-    is arithmetic, so signed columns resolve the same way)."""
-    for k in range(t.shape[0] - 1):
-        t[k + 1] += t[k] >> 16
-        t[k] &= MASK
-    carry = t[-1] >> 16
-    t[-1] &= MASK
-    return carry
+    is arithmetic, so signed columns resolve the same way).  Every row
+    passes its carry up at once, until no row has one: each pass keeps the
+    value, and 16-bit limbs with a carry out are unique, so this gives the
+    row-by-row ripple's limbs in a few passes (one per limb of the longest
+    carry chain) instead of K − 1 steps."""
+    carry = torch.zeros_like(t[-1])
+    while True:
+        c = t >> 16
+        if not bool(c.any()):
+            return carry
+        t &= MASK
+        t[1:] += c[:-1]
+        carry += c[-1]
 
 
 def _reduce_once(t: torch.Tensor, hi: torch.Tensor, c: PlainConsts) -> torch.Tensor:

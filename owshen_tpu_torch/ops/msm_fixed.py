@@ -17,19 +17,14 @@ from __future__ import annotations
 
 import torch
 
-from .msm import _flat_rows, _signed_digits, _unflat_rows
+from .msm import _flat_rows, _signed_digits, _unflat_rows, pad_points
 
 
 def _pad_points_pow2(curve, points, n_min: int = 1):
     """Pad a projective tuple with identities so n is a power of two
     (at least n_min)."""
     n = points[0].shape[0]
-    n2 = 1 << max((n - 1).bit_length(), (n_min - 1).bit_length())
-    if n2 == n:
-        return points
-    ident = curve.identity_like(points[0][:1])
-    return tuple(torch.cat([a, iz.expand((n2 - n,) + iz.shape[1:])])
-                 for a, iz in zip(points, ident))
+    return pad_points(curve, points, 1 << max((n - 1).bit_length(), (n_min - 1).bit_length()))
 
 
 def build_table(curve, points, c: int = 4):

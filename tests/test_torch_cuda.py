@@ -1,6 +1,8 @@
 """The port's kernels on the card: each against its plain twin on the same
-inputs, and the depth-2 proof against the digest the JAX package gives
-(chip_smoke.DEPTH2_DIGEST, asserted in tests/test_torch_pool.py).
+inputs; msm_sorted over G1 and G2 at 2^12 points against the host's linear
+combination; the depth-2 and deposit proofs against the digests the JAX
+package gives (chip_smoke.DEPTH2_DIGEST and DEPOSIT_DIGEST, asserted in
+tests/test_torch_pool.py and tests/test_torch_deposit.py).
 
 Every test needs a CUDA device and skips without one: a CUDA kernel has no
 CPU mode.  This file imports no JAX, so it runs on a GPU machine that has
@@ -15,6 +17,7 @@ import chip_smoke
 from owshen_tpu_torch.curves import bn254
 from owshen_tpu_torch.fields.field import FQ, FR
 from owshen_tpu_torch.kernels import field_ops, g1, g2, mimc, ntt, poseidon
+from owshen_tpu_torch.ops.msm import msm_sorted
 from owshen_tpu_torch.ops.ntt import NttDomain, col_twiddles, ntt_fused
 from owshen_tpu_torch.oracle import curve as ocurve
 
@@ -46,9 +49,17 @@ def test_k1_matches_plain(card):
             assert torch.equal(kernel(a, b[7], F.name), plain(a, b[7], F.name))
 
 
+def check_msm_sorted(card, group, curve):
+    """msm_sorted (c = 16) over 2^12 tiled multiples of the generator ==
+    (Σ s_i·k_i mod r)·gen, compared in affine form."""
+    pts, scalars, want = chip_smoke.msm_inputs(torch, card, group, 1 << 12, 12)
+    assert chip_smoke.msm_affine(group, msm_sorted(curve, pts, scalars)) == want
+
+
 def test_g2_kernels_match_plain(card):
     """K1's G2 add and double against their twins at 1, 65 and 8192 points,
-    chip_smoke.edge_pairs (O + O, P + O, O + Q, P + P, P + (−P)) first."""
+    chip_smoke.edge_pairs (O + O, P + O, O + Q, P + P, P + (−P)) first; and
+    the G2 msm_sorted that runs on them."""
     n = 8192
     tp, tq, want, want_dbl = chip_smoke.edge_points(torch, torch.Generator().manual_seed(65),
                                                     n, card, "g2")
@@ -60,6 +71,7 @@ def test_g2_kernels_match_plain(card):
             assert torch.equal(x, y)
         for x, y in zip(g2.g2_double(p), g2.g2_double_plain(p)):
             assert torch.equal(x, y)
+    check_msm_sorted(card, "g2", bn254.G2)
 
 
 def test_k2_k3_match_plain(card):
@@ -86,6 +98,7 @@ def test_k2_k3_match_plain(card):
         head = lambda pt: tuple(c[:n] for c in pt)  # noqa: E731
         for x, y in zip(g1.g1_double(head(tp)), head(dbl)):
             assert torch.equal(x, y)
+    check_msm_sorted(card, "g1", bn254.G1)
 
 
 def test_k4_matches_plain(card):
@@ -131,3 +144,4 @@ def test_k5_k6_k7_match_plain(card):
 
 def test_depth2_proof_on_card_matches_reference(card):
     assert chip_smoke.depth2_digest(card) == chip_smoke.DEPTH2_DIGEST
+    assert chip_smoke.deposit_digest(card) == chip_smoke.DEPOSIT_DIGEST

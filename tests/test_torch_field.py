@@ -75,6 +75,21 @@ def test_field_ops_match_jax(name):
     assert same(F.to_mont(F.from_mont(ta)), ja)
     # a single row broadcasts against the batch, as the twiddles do
     assert same(F.mul(ta, tb[5]), JF.mul(ja, jb[5][None]))
+    # the twins' carry propagation (every row at once, pass by pass) gives
+    # the row-by-row ripple's limbs and carry out, on long carry and borrow
+    # chains too
+    cols = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, (17, 64)))
+    cols[:, :8] = 0xFFFF
+    cols[0, :8] += torch.arange(1, 9)
+    cols[:, 8:16] = 0
+    cols[0, 8:16] -= torch.arange(1, 9)
+    want = cols.clone()
+    for k in range(16):
+        want[k + 1] += want[k] >> 16
+        want[k] &= 0xFFFF
+    carry = want[16] >> 16
+    want[16] &= 0xFFFF
+    assert torch.equal(field_ops.ripple(cols), carry) and torch.equal(cols, want)
 
 
 @pytest.mark.parametrize("name", ["fr", "fq"])

@@ -53,21 +53,20 @@ def test_prover_signatures_match_reference():
 
 
 def test_prover_engine_errors_come_before_any_work(monkeypatch):
-    """An unknown engine is a ValueError with the reference's message; an
-    engine, a mesh or a table size the port cannot serve yet is a
-    NotImplementedError naming its ROADMAP item.  No key or builder is
-    touched before these checks (None stands in for both)."""
+    """An unknown engine is a ValueError with the reference's message and a
+    mesh a NotImplementedError naming its ROADMAP item, before any work
+    (None stands in for the key and the builder).  "lane" and "sorted" are
+    served, and "fixed" with tables over the budget resolves to "sorted",
+    where the reference's prover goes too."""
     assert config.settings().prover_engine == jax_config.settings().prover_engine == "fixed"
     message = r"unknown prover engine 'bogus': expected fixed\|lane\|sorted"
     with pytest.raises(ValueError, match=message):
         groth16.prove(None, None, engine="bogus")
     for engine in ("lane", "sorted"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            groth16.prove(None, None, engine=engine)
+        assert groth16._resolve_engine(None, None, engine) == engine
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         groth16.prove(None, None, mesh=object())
     # the engine from OWSHEN_PROVER_ENGINE, and tables over the budget
-    # (which the reference sends to its sorted engine)
     monkeypatch.setenv("OWSHEN_PROVER_ENGINE", "bogus")
     monkeypatch.setenv("OWSHEN_FIXED_TABLE_MAX_GB", "1e-6")
     config.settings.cache_clear()
@@ -76,8 +75,8 @@ def test_prover_engine_errors_come_before_any_work(monkeypatch):
             groth16.prove(None, None)
         pts = (torch.zeros((100, 16), dtype=torch.int32),)
         key = types.SimpleNamespace(a_g1=pts, h_g1=pts, k_g1=None)
-        with pytest.raises(NotImplementedError, match="'sorted' engine.*queue 1 item 2"):
-            groth16.prove(key, None, engine="fixed")
+        assert groth16._resolve_engine(key, None, "fixed") == "sorted"
+        assert not jax_groth16._fixed_tables_fit(key)
     finally:
         monkeypatch.undo()
         config.settings.cache_clear()

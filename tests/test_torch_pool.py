@@ -15,13 +15,19 @@
 
 Two shortcuts keep this file to minutes on the CPU; neither touches what
 is compared.  The JAX proof runs the JAX prover's own steps (`_rand_stream`,
-`_h_pipeline`, `_prove_core`) with its MSMs taken on the host (Pippenger over
-the JAX oracle), because the fixed-table engine spends about ten minutes of
-XLA:CPU at depth 2.  The port proves through its fixed-table engine over
+`_prove_core`) with its MSMs taken on the host (Pippenger over the JAX
+oracle), because the fixed-table engine spends about ten minutes of XLA:CPU
+at depth 2, its nine assembly adds (`_combine_jit`) on the host too, whose
+trace and compile on XLA:CPU take ~20 s, and its h scalars from the JAX
+package's NTT oracle (tests/host_msm.py `host_h`, the values `_h_pipeline`
+gives), whose XLA:CPU trace and compile take half a minute or more; the JAX
+package's own prover tests run both.  The port proves through its fixed-table engine over
 tables computed on the host oracle, because building 64·9·2048-row tables on
 the plain int64 twins takes about four minutes; the rows `build_table`
 gives are held against the oracle in tests/test_torch_ntt_msm.py, and a
-wrong host row would show here as a proof that differs.
+wrong host row would show here as a proof that differs.  The host rows
+come from tests/host_msm.py: affine sums on bare ints with one inversion
+per batch, each window's rows encoded in one pass.
 
 The file keeps six test items: pytest-xdist's loadfile mode queues files by
 item count, and at six or fewer this file queues after the JAX package's
@@ -33,11 +39,10 @@ import pytest
 import torch
 
 import chip_smoke
+from host_msm import host_combine, host_h, host_table, oracle_affine, pippenger
 from owshen_tpu.circuits import pool as jcircuits
-from owshen_tpu.fields.field import FQ as JFQ
 from owshen_tpu.fields.field import FR as JFR
-from owshen_tpu.fields.field import array_to_ints
-from owshen_tpu.fields.fq2 import FQ2 as JFQ2
+from owshen_tpu.fields.field import array_to_ints, ints_to_array
 from owshen_tpu.curves import bn254 as jbn
 from owshen_tpu.groth16 import groth16 as jg
 from owshen_tpu.oracle import curve as ocurve
@@ -46,7 +51,6 @@ from owshen_tpu_torch import convert
 from owshen_tpu_torch.circuits import pool as circuits
 from owshen_tpu_torch.curves import bn254
 from owshen_tpu_torch.groth16 import groth16
-from owshen_tpu_torch.ops.msm import _flat_rows
 from owshen_tpu_torch.ops.msm_fixed import FixedMsm, FixedMsmGroup
 from owshen_tpu_torch.protocol.pool import PoolError, PrivacyPool
 
@@ -66,92 +70,6 @@ def affine(pt, group):
         return None
     dec = bn254.g1_decode_many if group == "g1" else bn254.g2_decode_many
     return dec(pt)
-
-
-# ---------------------------------------------------------------------------
-# host arithmetic over the JAX package's oracle
-# ---------------------------------------------------------------------------
-
-def oracle_affine(pt, group):
-    """JAX projective limb arrays -> [(x, y) or None], decoded by the JAX
-    package's field codecs."""
-    F, K = (JFQ, ocurve.FQ1) if group == "g1" else (JFQ2, ocurve.FQ2I)
-    out = []
-    for x, y, z in zip(*(F.decode(np.asarray(a)) for a in pt)):
-        zi = None if z == K.zero else K.inv(z)
-        out.append(None if zi is None else (K.mul(x, zi), K.mul(y, zi)))
-    return out
-
-
-def batch_add(K, ps, qs):
-    """Affine ps[i] + qs[i] (None = identity), one field inversion per
-    batch (Montgomery's trick)."""
-    out = [q if p is None else p for p, q in zip(ps, qs)]
-    idx, dens = [], []
-    for i, (p, q) in enumerate(zip(ps, qs)):
-        if p is None or q is None:
-            continue
-        if p[0] != q[0]:
-            dens.append(K.sub(q[0], p[0]))
-        elif p[1] == q[1]:
-            dens.append(K.add(p[1], p[1]))
-        else:
-            out[i] = None                          # P + (−P)
-            continue
-        idx.append(i)
-    prefix = [K.one]
-    for d in dens:
-        prefix.append(K.mul(prefix[-1], d))
-    inv = K.inv(prefix[-1])
-    for j in range(len(idx) - 1, -1, -1):
-        d_inv, inv = K.mul(inv, prefix[j]), K.mul(inv, dens[j])
-        (x1, y1), (x2, y2) = ps[idx[j]], qs[idx[j]]
-        if x1 != x2:
-            lam = K.mul(K.sub(y2, y1), d_inv)
-        else:
-            xx = K.mul(x1, x1)
-            lam = K.mul(K.add(K.add(xx, xx), xx), d_inv)
-        x3 = K.sub(K.sub(K.mul(lam, lam), x1), x2)
-        out[idx[j]] = (x3, K.sub(K.mul(lam, K.sub(x1, x3)), y1))
-    return out
-
-
-def pippenger(curve, points, scalars, c=8):
-    """Σ scalars[i]·points[i] on the oracle curve, bucket method."""
-    pairs = [(p, s) for p, s in zip(points, scalars) if p is not None and s]
-    acc = None
-    for w in reversed(range(-(-254 // c))):
-        for _ in range(c):
-            acc = curve.add(acc, acc)
-        buckets = [None] * (1 << c)
-        for p, s in pairs:
-            d = (s >> (w * c)) & ((1 << c) - 1)
-            if d:
-                buckets[d] = curve.add(buckets[d], p)
-        run = tot = None
-        for b in reversed(buckets[1:]):
-            run = curve.add(run, b)
-            tot = curve.add(tot, run)
-        acc = curve.add(acc, tot)
-    return acc
-
-
-def host_table(K, encode, base, c=4):
-    """The rows build_table(curve, encode(base), c) holds — rows[w, d] =
-    d·2^(c·w)·base — computed with affine host arithmetic."""
-    W, D = 256 // c, (1 << (c - 1)) + 1
-    rows = None
-    for w in range(W):
-        mults = [[None] * len(base), base]
-        for _ in range(2, D):
-            mults.append(batch_add(K, mults[-1], base))
-        for d, pts in enumerate(mults):
-            flat, widths, shapes = _flat_rows(encode(pts))
-            if rows is None:
-                rows = torch.empty((W, D) + tuple(flat.shape), dtype=flat.dtype)
-            rows[w, d] = flat
-        base = batch_add(K, mults[-1], mults[-1])
-    return rows, widths, shapes
 
 
 # ---------------------------------------------------------------------------
@@ -184,9 +102,7 @@ def jax_side(_small_pool_keys):
     rs = jg._rand_stream(chip_smoke.DEPTH2_PROVE_SEED + b"|rs")
     r, s = next(rs), next(rs)
     n = jpk.n_domain
-    mats = tuple(tuple(tuple(np.asarray(x) for x in bucket) for bucket in mat)
-                 for mat in builder.compiled(n))
-    h_sc = jg._h_pipeline(jg._domain(n.bit_length() - 1))(JFR.encode(wit), mats)[: n - 1]
+    h_sc = ints_to_array(host_h(builder, jg._domain(n.bit_length() - 1))[: n - 1])
     points = {name: oracle_affine(getattr(jpk, name), "g1") for name in G1_SETS}
     points["b_g2"] = oracle_affine(jpk.b_g2, "g2")
     by_key = {"a": "a_g1", "b1": "b_g1", "k": "k_g1", "h": "h_g1"}
@@ -199,7 +115,9 @@ def jax_side(_small_pool_keys):
         pt = pippenger(ocurve.G2, points["b_g2"], array_to_ints(np.asarray(sc)))
         return tuple(a[0] for a in jbn.g2_encode([pt]))
 
-    proof = jg._prove_core(jpk, wit, r, s, h_sc, mg1, mg2)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jg, "_combine_jit", host_combine)
+        proof = jg._prove_core(jpk, wit, r, s, h_sc, mg1, mg2)
     return {"pk": jpk, "vk": jvk, "pool": pool, "proof": proof, "root": root,
             "points": points, "nullifier": jcircuits.nullifier_of(NOTE["secret"], 1)}
 
@@ -219,10 +137,9 @@ def port_side(jax_side):
     pts = jax_side["points"]
     n = groth16._table_n(pk)
     pad = lambda ps: ps + [None] * (n - len(ps))  # noqa: E731
-    g1_rows, widths, shapes = host_table(ocurve.FQ1, bn254.g1_encode,
-                                         [p for name in G1_SETS for p in pad(pts[name])])
+    g1_rows, widths, shapes = host_table("g1", [p for name in G1_SETS for p in pad(pts[name])])
     g1 = FixedMsmGroup.from_rows(bn254.G1, g1_rows, (n, len(G1_SETS), widths, shapes))
-    b2_rows, widths, shapes = host_table(ocurve.FQ2I, bn254.g2_encode, pad(pts["b_g2"]))
+    b2_rows, widths, shapes = host_table("g2", pad(pts["b_g2"]))
     b2 = FixedMsm(bn254.G2, None, _rows=b2_rows, _meta=(n, 1, widths, shapes))
     groth16.restore_fixed_tables(pk, g1, b2)
 
