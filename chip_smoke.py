@@ -38,10 +38,28 @@
    Then the same withdraw statement through engine="sorted" (the path a
    key whose fixed tables exceed the budget takes) must give the fixed
    engine's proof.
-4. Proves the depth-2 withdraw statement below with fixed seeds and holds
+4. Vouchers and the sequencer, on the depth-16 pool of phase 3: 4096
+   distinct seeded messages signed with the pool's sequencer key in one
+   eddsa_sign_batch (64 seeded picks equal to oracle.eddsa.sign), all 4096
+   accepted by eddsa_verify (three warm batches timed, one profiled for its
+   device-busy share), and a seeded eighth tampered (message, s + 1, R off
+   the curve) rejected on exactly those lanes; then withdraw_batch of two
+   fresh proofs after an in-batch duplicate nullifier is rejected with no
+   state change, verify_vouchers_batch, each voucher through encode_voucher
+   -> verify_voucher_bytes -> redeem, a deposit batch popped (the root back
+   to the earlier one and the host oracle's) and deposited again, and
+   save_pool / load_pool through a temporary directory (bytes and seconds;
+   the loaded pool on the card with an equal root, a prove from it with no
+   table build that verifies, a pop after the load).  Launch counts zeroed
+   before; K1 and K4 must be > 0.  Then K1 and K4 are held against their
+   plain twins on the verify batch's operands at every width the EdDSA
+   batch launched them (K1 on 1 to 36 stacked batches of 4096 rows and
+   with a broadcast constant operand, K4 at 4096); a width launched and
+   not held fails the phase.
+5. Proves the depth-2 withdraw statement below with fixed seeds and holds
    the proof's digest against DEPTH2_DIGEST, which tests/test_torch_pool.py
    computes from the JAX package and asserts.
-5. The deposit proof (301 constraints): setup on the card, a first prove
+6. The deposit proof (301 constraints): setup on the card, a first prove
    and WARM_PROVES warm proves through the fixed engine (latency and
    proofs/s), verify accepts and a tampered commitment, amount or token is
    rejected, the proof's digest equals DEPOSIT_DIGEST (asserted from the JAX
@@ -49,22 +67,23 @@
    sorted engines; launches per kernel and the device-busy time of a warm
    prove.  The setup and first prove must launch K1–K3, the G2 kernels and
    K5.
-6. The G1 MSM at 2^22 through `ops.msm.msm` (which routes to msm_sorted at
+7. The G1 MSM at 2^22 through `ops.msm.msm` (which routes to msm_sorted at
    c = 16): 1024 multiples k·G tiled, seeded scalars below r; the result
    after to_affine must equal (Σ s_i·k_i mod r)·G; timed twice after the
    first run (host clock), with its device-busy time, peak memory and
-   launches by kernel and width (K1's subtraction, K2 and K3 must be > 0),
-   and once with the reference's 128-word gather rows.  Then the lane
+   launches by kernel and width (K1's subtraction, K2 and K3 must be > 0);
+   K1, K2 and K3 held against their twins on the MSM's own operands at
+   every width it launched them.  Then the lane
    engine at 2^16, msm_sorted at c = 8 on 2^16 points, G2 msm_sorted at 2^12
    and the G2 lane engine at 2^10 against the same host sums, and the
    loss of K1, K2 and K3 at each width the 2^22 MSM used.
-7. The NTT at 2^20 (NttDomain(20), seeded input): the K5 stage ladder and
+8. The NTT at 2^20 (NttDomain(20), seeded input): the K5 stage ladder and
    the fused K7 path give equal transforms, the inverse of each returns the
    input, both equal the host oracle at 2^10, and the 2^12 transform of a
    seeded input matches NTT_DIGEST; launch counts zeroed before, K5 and K7
    must be > 0; the fused transform's device-busy time must be > 0, and it
    is split by kernel (K7, the K1 correction multiply, the transpose copy).
-8. The dense MiMC tree over 2^20 seeded leaves: build_levels (one K6 launch
+9. The dense MiMC tree over 2^20 seeded leaves: build_levels (one K6 launch
    per level), every level against the plain twins applied to the level
    below (one twin call over all nodes, so the root is the twins' root), 1024
    authentication paths accepted and a tampered leaf rejected, and the root
@@ -72,7 +91,7 @@
    level's K6 launch is timed alone (CUDA events) beside its bound, and the
    device-busy time of one tree (profiler timeline) must agree with the sum
    of the levels' times within 5 %.
-9. Prints the `kernels` JSON line, then the result line.
+10. Prints the `kernels` JSON line, then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device, when the
 package is missing, or when any check fails.
@@ -858,7 +877,8 @@ def round_trip_depth16(torch, dev) -> dict:
     print("d16 launches by width, {width: [launches, items]}: "
           + json.dumps({k: widths[k] for k in WIDTH_KERNELS}), flush=True)
     return {"stages": stages, "launches": counts, "launches_by_stage": per_stage,
-            "widths": widths, "pool": pool, "builder": builder}
+            "widths": widths, "pool": pool, "builder": builder,
+            "entries": dict(zip(idxs, coms))}
 
 
 def sorted_withdraw(torch, dev, pool, builder) -> dict:
@@ -942,7 +962,324 @@ def pool_builder(pool, note, index, recipient):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the depth-2 proof against the JAX-recorded digest
+# Phase 4: vouchers and the sequencer (BabyJubJub EdDSA at 4096, the pool's
+# batched withdraw, wire, rollback and checkpoint)
+# ---------------------------------------------------------------------------
+
+VOUCHER_BATCH = 4096        # the sequencer's EdDSA batch (bench.py verifies 2^12)
+VOUCHER_CHECKED = 64        # signatures held against the host oracle
+VERIFY_REPS = 3
+VOUCHER_KERNELS = ("mont_mul", "mod_add", "mod_sub", "poseidon_hash2")
+VOUCHER_STACKS = (1, 2, 3, 4, 6, 8, 36)    # K1 operands of the EdDSA batch, in batches
+
+
+def host_call_us(torch, x, y, when: str) -> dict:
+    """Host microseconds per call of a K1 product and of a PyTorch stack of
+    the same operands, each issued 1000 times before one sync: the launch
+    costs that bound a path of many small launches."""
+    from owshen_tpu_torch.fields.field import FR
+
+    out = {}
+    for name, fn in (("k1_mul", lambda: FR.mul(x, y)), ("stack", lambda: torch.stack((x, y)))):
+        fn()
+        torch.cuda.synchronize()
+        t = time.time()
+        for _ in range(1000):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.time() - t) * 1e3
+    print(f"host per call at {x.shape[0]} rows {when}: K1 product {out['k1_mul']:.1f} us, "
+          f"torch.stack of two {out['stack']:.1f} us", flush=True)
+    return out
+
+
+def eddsa_batch(torch, dev, priv: int, pub) -> tuple[dict, tuple]:
+    """4096 distinct seeded messages signed by the sequencer key in one
+    eddsa_sign_batch, 64 seeded picks against the host oracle, all verified
+    by eddsa_verify; then a seeded eighth tampered (message, s + 1, R off
+    the curve) must be rejected on exactly those lanes.  Returns the
+    readings and the valid batch's verify operands."""
+    from owshen_tpu_torch import kernels
+    from owshen_tpu_torch.curves import babyjubjub as jub
+    from owshen_tpu_torch.fields.field import FR, ints_to_tensor
+    from owshen_tpu_torch.oracle import eddsa as oeddsa
+
+    n = VOUCHER_BATCH
+    rng = random.Random(n)
+    msgs = [rng.randrange(FR.p) for _ in range(n)]
+    rand = [rng.randrange(FR.p) for _ in range(n)]
+    if len(set(msgs)) != n:
+        fail("the seeded voucher messages are not distinct")
+    out = {}
+    t = time.time()
+    sigs = jub.eddsa_sign_batch([priv] * n, rand, msgs, device=dev)
+    out["sign_first_s"] = time.time() - t             # builds the base point's tables
+    before = kernels.launch_counts()
+    t = time.time()
+    again = jub.eddsa_sign_batch([priv] * n, rand, msgs, device=dev)
+    out["sign_s"] = time.time() - t
+    out["sign_launches"] = {k: v - before[k] for k, v in kernels.launch_counts().items()
+                            if v > before[k]}
+    if again != sigs:
+        fail("eddsa_sign_batch gave different signatures for the same inputs")
+    for i in rng.sample(range(n), VOUCHER_CHECKED):
+        if sigs[i] != oeddsa.sign(priv, rand[i], msgs[i]):
+            fail(f"eddsa_sign_batch lane {i} differs from oracle.eddsa.sign")
+    print(f"eddsa_sign_batch of {n}: {VOUCHER_CHECKED} seeded picks == oracle.eddsa.sign; "
+          f"first {out['sign_first_s']:.3f} s (base-point tables), then "
+          f"{out['sign_s']:.4f} s; launches per batch " + json.dumps(out["sign_launches"]),
+          flush=True)
+
+    def encode(ms, rs, ss):
+        return ((FR.encode([pub[0]] * n, device=dev), FR.encode([pub[1]] * n, device=dev)),
+                FR.encode(ms, device=dev),
+                (FR.encode([r[0] for r in rs], device=dev),
+                 FR.encode([r[1] for r in rs], device=dev)),
+                ints_to_tensor(ss, dev))
+
+    rs, ss = [r for r, _ in sigs], [s for _, s in sigs]
+    args = encode(msgs, rs, ss)
+    before = kernels.launch_counts()
+    ok = jub.eddsa_verify(*args)
+    torch.cuda.synchronize()
+    out["verify_launches"] = {k: v - before[k] for k, v in kernels.launch_counts().items()
+                              if v > before[k]}
+    if not bool(ok.all()):
+        fail(f"eddsa_verify rejected {int((~ok).sum())} of {n} valid signatures")
+    out["verify_s"] = []
+    for _ in range(VERIFY_REPS):
+        t = time.time()
+        jub.eddsa_verify(*args)
+        torch.cuda.synchronize()
+        out["verify_s"].append(time.time() - t)
+    out["verifies_per_s"] = n * len(out["verify_s"]) / sum(out["verify_s"])
+    wall, busy, events = device_busy(torch, lambda: jub.eddsa_verify(*args))
+    out["verify_profiled_s"], out["verify_busy_s"] = wall, busy
+    split = spans_by_kernel(events)
+    out["verify_split"] = {k: [c, round(ms, 4)] for k, (c, ms) in
+                           sorted(split.items(), key=lambda kv: -kv[1][1])[:8]}
+    print(f"eddsa_verify of {n}: all accepted; {json.dumps([round(x, 4) for x in out['verify_s']])}"
+          f" s, {out['verifies_per_s']:.0f} verifies/s; under the profiler {wall:.4f} s, device "
+          f"busy {busy:.4f} s (idle {100 * (1 - busy / wall):.1f} %); launches per batch "
+          + json.dumps(out["verify_launches"]) + "; device ms by kernel [spans, ms] "
+          + json.dumps(out["verify_split"]), flush=True)
+
+
+    bad = sorted(rng.sample(range(n), n // 8))
+    ms_t, rs_t, ss_t = list(msgs), list(rs), list(ss)
+    for j, i in enumerate(bad):
+        if j % 3 == 0:
+            ms_t[i] = (ms_t[i] + 1) % FR.p
+        elif j % 3 == 1:
+            ss_t[i] += 1
+        else:
+            rs_t[i] = (rs_t[i][0], (rs_t[i][1] + 1) % FR.p)
+    ok = jub.eddsa_verify(*encode(ms_t, rs_t, ss_t)).cpu()
+    want = torch.ones(n, dtype=torch.bool)
+    want[bad] = False
+    if not torch.equal(ok, want):
+        fail(f"eddsa_verify on the tampered batch: {int((ok != want).sum())} lanes differ "
+             f"from the {len(bad)} tampered ones")
+    print(f"eddsa_verify rejects exactly the {len(bad)} tampered lanes (message, s + 1, R off "
+          f"the curve)", flush=True)
+    return out, args
+
+
+def sequencer_ops(torch, dev, pool, entries: dict) -> dict:
+    """On the depth-16 pool of phase 3: withdraw_batch of two fresh proofs
+    (after an in-batch duplicate nullifier is rejected with no state
+    change), verify_vouchers_batch, each voucher through the wire codec to
+    redeem; a deposit batch popped (the root back to the earlier one and
+    the host oracle's) and deposited again; save_pool / load_pool into a
+    temporary directory, and a warm prove from the loaded pool."""
+    import shutil
+
+    from owshen_tpu_torch import kernels
+    from owshen_tpu_torch.circuits.pool import commitment_of
+    from owshen_tpu_torch.config import settings
+    from owshen_tpu_torch.fields.field import FR
+    from owshen_tpu_torch.groth16 import groth16
+    from owshen_tpu_torch.ops.merkle import oracle_sparse_root
+    from owshen_tpu_torch.protocol import wire
+    from owshen_tpu_torch.protocol.pool import PoolError
+    from owshen_tpu_torch.runtime import checkpoint
+
+    rng = random.Random(9)
+    out = {}
+    notes = [{"secret": rng.randrange(FR.p), "salt": rng.randrange(FR.p),
+              "amount": (i + 2) * 10 ** 18, "token": 0} for i in range(2)]
+    coms = [commitment_of(nt["secret"], nt["salt"], nt["amount"], nt["token"]) for nt in notes]
+    idxs = pool.deposit(coms, [rng.randrange(1 << 256) for _ in notes],
+                        [nt["amount"] for nt in notes])
+    entries.update(zip(idxs, coms))
+    reqs = []
+    for nt, idx in zip(notes, idxs):
+        recipient = rng.randrange(1 << 160)
+        proof, root, nullifier = pool.prove_withdraw(nt["secret"], nt["salt"], nt["amount"],
+                                                     idx, recipient)
+        reqs.append((proof, root, nullifier, recipient, nt["amount"]))
+    spent, balances = set(pool.nullifiers), dict(pool.balances)
+    try:
+        pool.withdraw_batch([reqs[0], reqs[0]])
+    except PoolError as err:
+        if "nullifier already spent" not in str(err):
+            fail(f"withdraw_batch: an in-batch duplicate nullifier failed as {err!r}")
+    else:
+        fail("withdraw_batch accepted a nullifier twice in one batch")
+    if (pool.nullifiers, pool.balances) != (spent, balances):
+        fail("withdraw_batch changed the pool's state on a rejected batch")
+    t = time.time()
+    vouchers = pool.withdraw_batch(reqs)
+    out["withdraw_batch_s"] = time.time() - t
+    t = time.time()
+    ok = pool.verify_vouchers_batch(vouchers)
+    out["verify_vouchers_s"] = time.time() - t
+    if not ok.all():
+        fail("verify_vouchers_batch rejected a voucher of withdraw_batch")
+    chain = settings().chain_id
+    for v in vouchers:
+        pool.redeem(wire.verify_voucher_bytes(wire.encode_voucher(v, chain), pool.seq_pub, chain))
+    print(f"pool: an in-batch duplicate nullifier rejected, state unchanged; withdraw_batch of 2 "
+          f"proofs {out['withdraw_batch_s']:.3f} s (two pairing verifies, one batched sign); "
+          f"verify_vouchers_batch true on both ({out['verify_vouchers_s']:.3f} s); each voucher "
+          f"encode_voucher -> verify_voucher_bytes -> redeem", flush=True)
+
+    root_before = pool.tree.root_int()
+    coms_b = [rng.randrange(FR.p) for _ in range(64)]
+    txs_b = [rng.randrange(1 << 256) for _ in coms_b]
+    pool.deposit(coms_b, txs_b)
+    root_b = pool.tree.root_int()
+    t = time.time()
+    pool.pop_batch()
+    out["pop_batch_s"] = time.time() - t
+    if pool.tree.root_int() != root_before:
+        fail("pop_batch did not restore the earlier root")
+    if root_before != oracle_sparse_root(entries, pool.depth):
+        fail("the root after pop_batch differs from the host oracle's")
+    pool.deposit(coms_b, txs_b)
+    if pool.tree.root_int() != root_b:
+        fail("the re-deposit after pop_batch gave another root")
+    print(f"pool: pop_batch of 64 ({out['pop_batch_s']:.4f} s) restored the earlier root == "
+          f"oracle_sparse_root; the same L1 transactions deposited again", flush=True)
+
+    tmp = tempfile.mkdtemp()
+    try:
+        path = os.path.join(tmp, "pool.db")
+        out["disk_free_gb"] = shutil.disk_usage(tmp).free / 1e9
+        t = time.time()
+        checkpoint.save_pool(pool, path)
+        out["save_s"] = time.time() - t
+        out["checkpoint_bytes"] = os.path.getsize(path)
+        t = time.time()
+        loaded = checkpoint.load_pool(path)
+        torch.cuda.synchronize()
+        out["load_s"] = time.time() - t
+    finally:
+        shutil.rmtree(tmp)
+    if loaded.device.type != "cuda" or loaded.tree.nodes.device.type != "cuda" \
+            or loaded.pk.device.type != "cuda":
+        fail(f"load_pool resumed on {loaded.device}, not on the card")
+    if loaded.tree.root_int() != pool.tree.root_int() or loaded.roots != pool.roots:
+        fail("load_pool: the loaded root differs")
+    builder = pool_builder(loaded, notes[0], idxs[0], reqs[0][3])
+    before = kernels.launch_counts()
+    t = time.time()
+    proof = groth16.prove(loaded.pk, builder, device=dev)
+    torch.cuda.synchronize()
+    out["loaded_prove_s"] = time.time() - t
+    out["loaded_prove_launches"] = {k: v - before[k] for k, v in kernels.launch_counts().items()
+                                    if v > before[k]}
+    if out["loaded_prove_launches"].get("g1_double") or out["loaded_prove_launches"].get("g2_double"):
+        fail("the prove from the loaded pool rebuilt its fixed tables")
+    if not groth16.verify(loaded.vk, builder.witness()[1:1 + builder.n_pub], proof):
+        fail("the proof from the loaded pool did not verify")
+    loaded.pop_batch()
+    if loaded.tree.root_int() != root_before:
+        fail("pop_batch after load_pool did not restore the earlier root")
+    print(f"checkpoint: save_pool {out['save_s']:.2f} s, {out['checkpoint_bytes']} bytes "
+          f"({out['disk_free_gb']:.0f} GB free); load_pool {out['load_s']:.2f} s, on cuda, root "
+          f"equal; a prove from it {out['loaded_prove_s']:.3f} s with no table build (launches "
+          + json.dumps(out["loaded_prove_launches"]) + "), verified; pop_batch after the load "
+          "restores the earlier root", flush=True)
+    return out
+
+
+def voucher_path_checks(torch, args) -> tuple[dict, set]:
+    """K1 and K4 against their plain versions at every width the EdDSA
+    batch launches them, on the verify batch's own operands (A, M, R: 4096
+    Montgomery Fr rows each): K1's product, add and subtract on k stacked
+    batches for each k in VOUCHER_STACKS (the Edwards formulas' stacked
+    operands, the sign's 2n lanes, the t = 6 Poseidon's state and MDS
+    products), and on one 16-limb constant broadcast over 4096 and 8192 rows
+    (the kernels' step-0 operand: every mul_const and to_mont); K4 on
+    (M, R.x) at 4096.  Fails on any difference; returns the errors and the
+    (kernel, width) pairs held, widths bucketed as the launch counters do."""
+    from owshen_tpu_torch.curves.babyjubjub import D
+    from owshen_tpu_torch.fields.field import FR
+    from owshen_tpu_torch.kernels import field_ops, poseidon
+
+    (ax, ay), msg, (rx, ry), _ = args
+    vals = (rx, ry, msg, ax, ay)
+    n = msg.shape[0]
+    k1 = {"mont_mul": (field_ops.mont_mul, field_ops.mont_mul_plain),
+          "mod_add": (field_ops.mod_add, field_ops.mod_add_plain),
+          "mod_sub": (field_ops.mod_sub, field_ops.mod_sub_plain)}
+    const = FR.const(D, device=msg.device)
+    errs, held = {}, set()
+
+    def check(name, rows, note, got, want):
+        errs[f"{name} n={rows}{note}"] = max_abs_err(torch, got, want)
+        held.add((name, 1 << max(0, rows - 1).bit_length()))
+
+    for k in VOUCHER_STACKS:
+        a = torch.stack([vals[i % len(vals)] for i in range(k)])
+        b = torch.stack([vals[(i + 1 + i // len(vals)) % len(vals)] for i in range(k)])
+        for name, (kernel, plain) in k1.items():
+            check(name, k * n, f" ({k} stacked)", kernel(a, b, "fr"), plain(a, b, "fr"))
+    for k in (1, 2):
+        a = torch.cat(vals[:k])
+        for name, (kernel, plain) in k1.items():
+            check(name, k * n, " (constant operand)", kernel(a, const, "fr"),
+                  plain(a, const, "fr"))
+    check("poseidon_hash2", n, "", poseidon.poseidon_hash2(msg, rx),
+          poseidon.poseidon_hash2_plain(msg, rx))
+    print("voucher path kernels against their plain versions on the verify batch's operands, "
+          "max |diff|: " + json.dumps(errs), flush=True)
+    for case, err in errs.items():
+        if err != 0:
+            fail(f"voucher path ({case}): kernel disagrees with its plain version")
+    return errs, held
+
+
+def voucher_phase(torch, dev, pool, entries: dict) -> dict:
+    from owshen_tpu_torch import kernels
+    from owshen_tpu_torch.oracle.field import P_FR
+
+    gen = torch.Generator().manual_seed(11)
+    calls = host_call_us(torch, *(rand_field(torch, gen, P_FR, VOUCHER_BATCH, dev)
+                                  for _ in range(2)), "before the voucher phase")
+    kernels.reset_launches()
+    out = {"host_call_us": calls}
+    out["eddsa"], args = eddsa_batch(torch, dev, pool._seq_priv, pool.seq_pub)
+    widths = kernels.launch_widths()
+    out["eddsa_widths"] = {k: widths[k] for k in VOUCHER_KERNELS}
+    out["pool"] = sequencer_ops(torch, dev, pool, entries)
+    out["launches"] = kernels.launch_counts()
+    print("vouchers and the sequencer: launches " + json.dumps(nonzero(out["launches"]))
+          + "; the EdDSA batch's by width {width: [launches, items]}: "
+          + json.dumps(out["eddsa_widths"]), flush=True)
+    for name in VOUCHER_KERNELS:
+        if out["launches"][name] <= 0:
+            fail(f"kernel {name} was not launched on the voucher path")
+    out["path_checks"], held = voucher_path_checks(torch, args)
+    unheld = sorted({(k, int(w)) for k, ws in out["eddsa_widths"].items() for w in ws} - held)
+    if unheld:
+        fail(f"EdDSA batch: kernel widths not held against their plain versions: {unheld}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the depth-2 proof against the JAX-recorded digest
 # ---------------------------------------------------------------------------
 
 def depth2_digest(dev) -> str:
@@ -959,7 +1296,7 @@ def depth2_digest(dev) -> str:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the deposit proof through the fixed, lane and sorted engines
+# Phase 6: the deposit proof through the fixed, lane and sorted engines
 # ---------------------------------------------------------------------------
 
 # the kernels the deposit prove must launch (setup and first prove)
@@ -1061,7 +1398,7 @@ def deposit_phase(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: the Pippenger MSMs (2^22 G1 through msm_sorted, the lane engine)
+# Phase 7: the Pippenger MSMs (2^22 G1 through msm_sorted, the lane engine)
 # ---------------------------------------------------------------------------
 
 MSM_LOG_N = 22
@@ -1230,7 +1567,7 @@ def msm_phase(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: the NTT at 2^20 (K5 ladder and K7 fused)
+# Phase 8: the NTT at 2^20 (K5 ladder and K7 fused)
 # ---------------------------------------------------------------------------
 
 def ntt_phase(torch, dev) -> dict:
@@ -1307,7 +1644,7 @@ def ntt_phase(torch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: the dense MiMC tree over 2^20 leaves (K6)
+# Phase 9: the dense MiMC tree over 2^20 leaves (K6)
 # ---------------------------------------------------------------------------
 
 def level_times(torch, levels, reps: int) -> list[dict]:
@@ -1442,7 +1779,10 @@ def main() -> int:
     kern = check_kernels(torch, dev)
     trip = round_trip_depth16(torch, dev)
     losses = width_losses(torch, dev, trip["widths"])
-    withdraw_sorted = sorted_withdraw(torch, dev, trip.pop("pool"), trip.pop("builder"))
+    pool = trip.pop("pool")
+    withdraw_sorted = sorted_withdraw(torch, dev, pool, trip.pop("builder"))
+    vouchers = voucher_phase(torch, dev, pool, trip.pop("entries"))
+    del pool                    # its 5.4 GB of tables would count in the MSM's peak
 
     t = time.time()
     digest = depth2_digest(dev)
@@ -1486,9 +1826,10 @@ def main() -> int:
         "msm_2_22": {k: v for k, v in msmp.items() if k not in ("launches", "widths")},
         "msm_2_22_widths": {k: msmp["widths"][k] for k in MSM_KERNELS},
         "withdraw_d16_sorted": withdraw_sorted,
+        "vouchers": {k: v for k, v in vouchers.items() if k != "launches"},
         "launches_by_phase": {"depth16": trip["launches"], "deposit": deposit["launches"],
                               "msm_2_22": msmp["launches"], "ntt_2_20": nttp["launches"],
-                              "mimc_2_20": mimcp["launches"]},
+                              "mimc_2_20": mimcp["launches"], "vouchers": vouchers["launches"]},
         "card": smi, "total_s": time.time() - t_start}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

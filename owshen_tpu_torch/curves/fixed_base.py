@@ -1,9 +1,12 @@
-"""Fixed-base windowed scalar multiplication (Groth16 setup's points).
+"""Fixed-base windowed scalar multiplication (Groth16 setup's points, the
+BabyJubJub base point of EdDSA).
 
 host (once per base):  T[w][d] = d · 2^(c·w) · G for every window w and
                        digit d < 2^c, from host oracle adds;
 card (per batch):      k·G = Σ_w T[w][digit_w(k)] — one row gather and
-                       W − 1 wide complete adds (K2 over G1).
+                       W − 1 wide complete adds (K2 over G1, the G2
+                       kernel over G2, K1-composed Edwards adds for
+                       BabyJubJub).
 """
 
 from __future__ import annotations
@@ -18,8 +21,9 @@ from ..ops.msm import _flat_rows, _unflat_rows, sum_scan, window_digits
 class FixedBase:
     """Window tables for one (curve, generator) pair.
 
-    curve: Weierstrass ops; oracle: host WCurve; encode: host points ->
-    projective tensors (e.g. bn254.g1_encode); gen: affine generator."""
+    curve: curve ops (Weierstrass, babyjubjub.JUB_OPS); oracle: host curve
+    with identity None; encode: host points -> projective tensors (e.g.
+    bn254.g1_encode); gen: affine generator."""
 
     def __init__(self, curve, oracle, encode, gen, c: int = 8, n_bits: int = 256):
         self.curve = curve
@@ -70,3 +74,12 @@ def g2_fixed_base(c: int = 8) -> FixedBase:
     from ..oracle import curve as ocurve
     from . import bn254
     return FixedBase(bn254.G2, ocurve.G2, bn254.g2_encode, ocurve.G2_GEN, c)
+
+
+@functools.lru_cache(maxsize=None)
+def jub_fixed_base(c: int = 8) -> FixedBase:
+    """Window tables of the BabyJubJub base point: EdDSA's s·B, r·B and a·B
+    as one gather and 31 batched complete adds instead of a 254-step ladder.
+    All 256 bits are kept (32 windows at c = 8), as an EdDSA s may exceed p."""
+    from . import babyjubjub as jub
+    return FixedBase(jub.JUB_OPS, jub._JubOracle(), jub.jub_encode, jub.BASE, c)

@@ -8,8 +8,9 @@ limb.  Every limb is < 2^16, so int32 holds it without sign trouble.
 `mul`, `add` and `sub` go through the K1 wrappers (kernels/field_ops.py):
 on a CUDA tensor they launch the hand-written kernel, on a CPU tensor they
 run its plain twin.  Everything else here is composed from them (`pow_const`
-and `inv` are square-and-multiply chains of K1 products) or is a plain
-tensor op (select, compare, bits).
+and `inv` are square-and-multiply chains of K1 products, `sqrt` adds
+Tonelli–Shanks rounds of them) or is a plain tensor op (select, compare,
+bits).
 """
 
 from __future__ import annotations
@@ -152,6 +153,30 @@ class Field:
         """Batched inverse by Fermat, x^(p − 2); inv(0) = 0."""
         return self.pow_const(x, self.p - 2)
 
+    def sqrt(self, x):
+        """Batched Tonelli–Shanks square root, branchless: s = two_adicity
+        fixed rounds, every select on the card.  Returns (root, ok), ok[...]
+        true where x is a square (0 included).  Which of the two roots comes
+        back is unspecified; callers canonicalise by parity, as
+        babyjubjub.decompress does."""
+        p, s = self.p, self.two_adicity
+        q = (p - 1) >> s
+        one = self.const(1, device=x.device)
+        c = self.const(pow(self.generator, q, p), device=x.device)   # the same in every lane
+        w = self.pow_const(x, (q - 1) // 2)      # one chain: x^q = w²·x, x^((q+1)/2) = w·x
+        r, t = self.mul(w, x), self.mul(self.sqr(w), x)
+        for i in range(s - 1, 0, -1):
+            t_pow = t
+            for _ in range(i - 1):          # t^(2^(i-1)): i − 1 squares, fixed by i
+                t_pow = self.sqr(t_pow)
+            flip = ~self.eq(t_pow, one)
+            c2 = self.sqr(c)
+            r = self.select(flip, self.mul(r, c), r)
+            t = self.select(flip, self.mul(t, c2), t)
+            c = c2
+        ok = self.eq(self.mul(r, r), x) | self.is_zero(x)
+        return r, ok
+
     # ---------- misc ----------
 
     def to_bits_le(self, a, n_bits: int | None = None):
@@ -159,6 +184,10 @@ class Field:
         least significant bit first."""
         i = torch.arange(n_bits or W * self.L, device=a.device)
         return (a[..., i // W] >> (i % W)) & 1
+
+    def is_odd(self, a):
+        """Parity of the canonical value; `a` must be non-Montgomery."""
+        return (a[..., 0] & 1) == 1
 
 
 FR = Field("fr", P_FR)

@@ -176,6 +176,12 @@ class SparseMerkleTree:
         """Prior values of the given heap rows."""
         return self.nodes[torch.as_tensor(np.asarray(rows, np.int64), device=self.device)]
 
+    def restore_rows(self, rows, values: torch.Tensor) -> None:
+        """Scatter prior values back into the given heap rows (the undo of
+        a batch; reference pop_block, src/blockchain/mod.rs:291-315)."""
+        idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+        self.nodes[idx] = values.to(self.device, torch.int32)
+
 
 def oracle_sparse_root(entries: dict[int, int], depth: int,
                        hash_name: str = "poseidon") -> int:

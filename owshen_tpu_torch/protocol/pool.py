@@ -10,10 +10,12 @@ owshen_tpu/protocol/pool.py.
     (burn_tx.rs:15-24, contracts/src/Owshen.sol:66-78) as a sequencer-signed
     voucher over keccak256(recipient, token, amount, id, chain id)
     (Owshen.sol:70-73);
-  * redeem: the escrow's checks, once per voucher.
+  * redeem: the escrow's checks, once per voucher;
+  * pop_batch: the reorg path, undoing the last deposit batch;
+  * withdraw_batch / verify_vouchers_batch: the sequencer's batched paths,
+    EdDSA over BabyJubJub on the card (curves/babyjubjub.py).
 
-withdraw_batch, verify_vouchers_batch (BabyJubJub on the card), pop_batch
-and checkpoints are not ported yet."""
+Checkpoints of a pool: runtime/checkpoint.py."""
 
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from dataclasses import dataclass
 
 from ..circuits import pool as circuits
 from ..config import resolve_device, settings
-from ..fields.field import FR
+from ..curves import babyjubjub as jub
+from ..fields.field import FR, ints_to_tensor
 from ..groth16 import groth16
 from ..ops.keccak import keccak256_int
 from ..ops.merkle import SparseMerkleTree
@@ -161,6 +164,27 @@ class PrivacyPool:
             "amounts": list(amounts), "tokens": token_ids})
         return idxs
 
+    def pop_batch(self) -> int:
+        """Unwind the most recent deposit batch, the reorg path (reference
+        pop_block replays the persisted inverse delta,
+        src/blockchain/mod.rs:291-315): the tree rows get their prior
+        values back, the batch's guards and credits are removed and the
+        root history rewinds.  Returns the number of commitments unwound."""
+        if not self._undo:
+            raise PoolError("no batch to pop")
+        rec = self._undo.pop()
+        self.tree.restore_rows(rec["rows"], rec["prior"])
+        self.next_index -= rec["count"]
+        self.deposited.difference_update(rec["tx_hashes"])
+        self.minted.difference_update(rec["mint_ids"])
+        for tid, amt in zip(rec["tokens"], rec["amounts"]):
+            self.balances[tid] = self.balances.get(tid, 0) - amt
+        self.roots.pop()
+        metrics.inc("pool.pops")
+        if self.tree.root_int() != self.roots[-1]:
+            raise AssertionError("rollback restored a different root")
+        return rec["count"]
+
     # ------------------------------------------------------------------
     # withdraw (pool → L1 voucher): burn_tx.rs:11-32 + Owshen.sol:66-78
     # ------------------------------------------------------------------
@@ -206,6 +230,68 @@ class PrivacyPool:
             raise PoolError("bad sequencer signature")
         self.executed.add(voucher.nullifier)
         return True
+
+    def verify_vouchers_batch(self, vouchers: list[Voucher]):
+        """Batched EdDSA check of vouchers against the sequencer key on the
+        pool's device (reference analogue: the per-tx signature checks of
+        apply_tx, mod.rs:99-115).  Returns a numpy bool[n]; no replay
+        accounting."""
+        n, dev = len(vouchers), self.device
+        ax = FR.encode([self.seq_pub[0]] * n, device=dev)
+        ay = FR.encode([self.seq_pub[1]] * n, device=dev)
+        rx = FR.encode([v.sig_r[0] for v in vouchers], device=dev)
+        ry = FR.encode([v.sig_r[1] for v in vouchers], device=dev)
+        msg = FR.encode([v.binding % FR.p for v in vouchers], device=dev)
+        s = ints_to_tensor([v.sig_s for v in vouchers], dev)     # raw limbs: s may exceed p
+        return jub.eddsa_verify((ax, ay), msg, (rx, ry), s).cpu().numpy()
+
+    def withdraw_batch(self, requests: list[tuple]) -> list[Voucher]:
+        """Batched withdrawal: each request passes the single path's guards
+        and proof check in turn, then ONE batched EdDSA sign on the pool's
+        device issues all the vouchers.  requests: [(proof, root, nullifier,
+        recipient, amount[, token])].  Raises on the first invalid request
+        and changes no state unless all pass (the batch analogue of apply_tx
+        failing the block)."""
+        norm = []
+        for req in requests:
+            proof, root, nullifier, recipient, amount = req[:5]
+            tid = _token_id(req[5]) if len(req) > 5 else 0
+            norm.append((proof, root, nullifier, recipient, amount, tid))
+        bindings = []
+        # the reference applies burns one at a time, so a nullifier repeated
+        # within a batch fails like a replay (burn_tx.rs:17-18), and the
+        # running per-token debit must stay covered (burn_tx.rs:21-24)
+        seen_nullifiers: set[int] = set()
+        debits: dict[int, int] = {}
+        for proof, root, nullifier, recipient, amount, tid in norm:
+            if root not in self.roots:
+                raise PoolError("unknown root")
+            if nullifier in self.nullifiers or nullifier in seen_nullifiers:
+                raise PoolError("nullifier already spent")
+            seen_nullifiers.add(nullifier)
+            if not groth16.verify(self.vk, [root, nullifier, recipient, amount, tid], proof):
+                metrics.inc("pool.rejected_proofs")
+                raise PoolError("invalid proof")
+            debited = debits.get(tid, 0) + amount
+            if self.balances.get(tid, 0) < debited:
+                raise PoolError("insufficient pool balance")
+            debits[tid] = debited
+            bindings.append(_binding_hash(recipient, tid, amount, nullifier,
+                                          settings().chain_id))
+        n = len(norm)
+        sigs = jub.eddsa_sign_batch(
+            [self._seq_priv] * n,
+            [int.from_bytes(os.urandom(32), "big") % FR.p for _ in range(n)],
+            [b % FR.p for b in bindings], device=self.device)
+        out = []
+        for (_, _, nullifier, recipient, amount, tid), binding, (R, s) in zip(
+                norm, bindings, sigs):
+            self.nullifiers.add(nullifier)
+            self.balances[tid] = self.balances.get(tid, 0) - amount
+            metrics.inc("pool.withdrawals")
+            out.append(Voucher(recipient=recipient, amount=amount, token=tid,
+                               nullifier=nullifier, binding=binding, sig_r=R, sig_s=s))
+        return out
 
     # ------------------------------------------------------------------
     # client side
