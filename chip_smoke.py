@@ -91,7 +91,23 @@
    level's K6 launch is timed alone (CUDA events) beside its bound, and the
    device-busy time of one tree (profiler timeline) must agree with the sum
    of the levels' times within 5 %.
-10. Prints the `kernels` JSON line, then the result line.
+10. The mesh layer (owshen_tpu_torch/parallel/) on make_mesh(d) over the
+   one card, its shards sharing it (correctness runs: their times say
+   nothing of scaling).  Right after phase 3, the depth-16 withdraw
+   statement proved with prove(mesh=...) at d = 2 and 4 must equal the
+   fixed engine's proof point for point and verify.  After phase 9:
+   DistNtt at 2^20 (d = 4) forward and inverse equal to NttDomain(20)'s,
+   msm_dist on the 2^22 MSM's inputs (d = 4) equal to ops.msm.msm's
+   point, merkle_root_dist over the 2^20 MiMC leaves (d = 4) equal to
+   phase 9's root with "mimc" and to merkle_root with "poseidon", the
+   depth-16 deposit batch inserted into DistSparseMerkleTree(16) at d = 8
+   in two batches to the pool's root (a duplicate index rejected), and
+   dryrun.run at d = 2 and 4 and, in a clean interpreter,
+   dryrun.run_subprocess(8).  Each stage's seconds, launches zeroed
+   before and read after (K1–K6 and the G2 kernels must be > 0), and the
+   device-busy share of the d = 2 prove and of DistNtt, msm_dist and the
+   MiMC root at d = 4.
+11. Prints the `kernels` JSON line, then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device, when the
 package is missing, or when any check fails.
@@ -312,8 +328,9 @@ def time_ms(torch, fn, reps: int) -> float:
 
 DEVICE_SPANS = ("kernel", "gpu_memcpy", "gpu_memset")   # Chrome trace categories
 SETTLE_S = 0.05     # idle host time around the profiled calls, inside the session
-SPINS = 16          # spin kernels that open each session (see traced)
+SPINS = 64          # spin kernels that open and close each session (see traced)
 TRIES = 3           # profiler sessions before a timeline that lost launches fails
+SPIN_LOSS = {"sessions": 0, "leading_max": 0, "trailing_max": 0}   # over the run
 
 
 def traced(torch, fn, reps: int = 1) -> tuple[float, list]:
@@ -321,9 +338,13 @@ def traced(torch, fn, reps: int = 1) -> tuple[float, list]:
     profiler: the kernel, copy and memset events of the card's timeline,
     read from the profiler's Chrome trace.  Late in a run, the first few
     kernel records of a session can be missing from its trace (up to 8 of
-    them, on an H100 with torch 2.11), so each session opens with SPINS
-    tiny spin kernels that take that loss and are left out of the spans.
-    The session stays open SETTLE_S before and after the calls, so that
+    them, on an H100 with torch 2.11; in PR 11 the calls' own records
+    after 16 leading spins, and later 1 to all 64 of the spins, never the
+    trailing ones), so each session opens and closes with SPINS tiny spin
+    kernels that take that loss and are left out of the spans; the losses
+    go in SPIN_LOSS, and one that takes every spin of a side is printed.
+    The
+    session stays open SETTLE_S before and after the calls, so that
     device events near its ends fall inside it."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -338,14 +359,28 @@ def traced(torch, fn, reps: int = 1) -> tuple[float, list]:
             fn()
         torch.cuda.synchronize()
         wall = time.time() - t
+        for _ in range(SPINS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         time.sleep(SETTLE_S)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as fh:
             events = json.load(fh)["traceEvents"]
-    return wall, [e for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_SPANS
-                  and "spin_kernel" not in e["name"]]
+    device = [e for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_SPANS]
+    spans = [e for e in device if "spin_kernel" not in e["name"]]
+    first = min((e["ts"] for e in spans), default=float("inf"))
+    spins = [e["ts"] < first for e in device if "spin_kernel" in e["name"]]
+    lost = (SPINS - sum(spins), SPINS - (len(spins) - sum(spins)))
+    if spans:
+        SPIN_LOSS["sessions"] += 1
+        SPIN_LOSS["leading_max"] = max(SPIN_LOSS["leading_max"], lost[0])
+        SPIN_LOSS["trailing_max"] = max(SPIN_LOSS["trailing_max"], lost[1])
+        if SPINS in lost:
+            print(f"traced: {lost[0]} leading and {lost[1]} trailing spin kernels missing from "
+                  "the timeline", flush=True)
+    return wall, spans
 
 
 def device_ms(torch, fn, reps: int, kernel: str) -> float:
@@ -878,7 +913,7 @@ def round_trip_depth16(torch, dev) -> dict:
           + json.dumps({k: widths[k] for k in WIDTH_KERNELS}), flush=True)
     return {"stages": stages, "launches": counts, "launches_by_stage": per_stage,
             "widths": widths, "pool": pool, "builder": builder,
-            "entries": dict(zip(idxs, coms))}
+            "entries": dict(zip(idxs, coms)), "root": root}
 
 
 def sorted_withdraw(torch, dev, pool, builder) -> dict:
@@ -905,7 +940,7 @@ def sorted_withdraw(torch, dev, pool, builder) -> dict:
         fail("depth-16: the sorted engine's proof differs from the fixed engine's")
     print(f"d16 prove through engine='sorted' == fixed ({out['sorted_s']:.2f} s, fixed "
           f"{out['fixed_s']:.2f} s); launches " + json.dumps(out["launches"]), flush=True)
-    return out
+    return out, fixed
 
 
 def width_losses(torch, dev, widths, names=LOSS_KERNELS, label="depth-16") -> dict:
@@ -1527,7 +1562,8 @@ def msm_phase(torch, dev) -> dict:
     for name in MSM_KERNELS:
         if out["launches"][name] <= 0:
             fail(f"kernel {name} was not launched by the 2^22 MSM")
-    if msm_affine("g1", got) != want:
+    out["affine"] = msm_affine("g1", got)
+    if out["affine"] != want:
         fail("MSM 2^22: msm differs from (Σ s_i·k_i mod r)·G")
     out["path_checks"], held = msm_path_checks(torch, pts, scalars)
     unheld = sorted({(k, int(wd)) for k in MSM_KERNELS for wd in out["widths"][k]} - held)
@@ -1695,6 +1731,7 @@ def mimc_phase(torch, dev) -> dict:
         fail(f"MiMC 2^20: build_levels made {kernels.launch_counts()['mimc_hash2']} K6 "
              f"launches, not one per level ({depth})")
     root = levels[-1][0]
+    out["leaves"], out["root"] = leaves, FR.decode(root[None])
     idx = torch.randint(0, 1 << depth, (1024,), generator=gen).tolist()
     t = time.time()
     sibs, bits = merkle_path(levels, idx)
@@ -1757,6 +1794,283 @@ def mimc_phase(torch, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the mesh layer (parallel/), shards sharing the one card
+# ---------------------------------------------------------------------------
+
+# the kernels each mesh stage must launch: K1 (the DistNtt twiddle, the h
+# pipeline, the 1/n scaling), K2, K3 and the G2 kernels (each shard's
+# MSM, the partials' sum), K4 (the Poseidon trees), K5 (every shard's
+# column and row transforms), K6 (the MiMC tree)
+MESH_STAGE_KERNELS = {
+    "prove": ("mont_mul", "mod_add", "mod_sub", "g1_add", "g1_double", "g2_add", "g2_double",
+              "ntt_butterfly"),
+    "DistNtt": ("mont_mul", "ntt_butterfly"),
+    "msm_dist": MSM_KERNELS,
+    "mimc root": ("mimc_hash2",),
+    "poseidon root": ("poseidon_hash2",),
+    "sparse tree": ("poseidon_hash2",),
+    "dryrun": ("mont_mul", "g1_add", "g1_double", "g2_add", "g2_double", "poseidon_hash2",
+               "ntt_butterfly"),
+}
+MESH_KERNELS = tuple(sorted({k for ks in MESH_STAGE_KERNELS.values() for k in ks}))
+CHECK_S = {}                # seconds of each mesh (kernel, width) twin check, by pair
+MESH_D = 4                  # shards of the 2^20 NTT, the 2^22 MSM and the 2^20-leaf roots
+MESH_TREE_D = 8             # shards of the depth-16 sparse tree
+MESH_PROVE_D = (2, 4)
+DRYRUN_D = (2, 4, 8)
+
+
+def copies(torch, args, dev):
+    """A fresh copy of kept operands on `dev` (K5 works in place)."""
+    return tuple(copies(torch, a, dev) if isinstance(a, tuple)
+                 else a.to(dev, copy=True) if isinstance(a, torch.Tensor) else a for a in args)
+
+
+# kernels whose every output row is a function of the same row of each
+# operand, so one plain call over several launches' rows checks them all
+ROW_KERNELS = ("mont_mul", "mod_add", "mod_sub", "g1_add", "g1_double", "g2_add", "g2_double",
+               "poseidon_hash2", "mimc_hash2")
+
+
+def tensors_of(torch, x) -> list:
+    """The tensors of a kept call's arguments (or of an output), in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for a in x for t in tensors_of(torch, a)] if isinstance(x, tuple) else []
+
+
+def with_tensors(torch, x, it):
+    """x with its tensors replaced, in order, by those `it` yields."""
+    if isinstance(x, torch.Tensor):
+        return next(it)
+    return tuple(with_tensors(torch, a, it) for a in x) if isinstance(x, tuple) else x
+
+
+def as_rows(torch, x, tail: int):
+    """x's tensors broadcast to one shape and flattened to rows of their
+    last `tail` axes (2 for G2 coordinates, else the 16 limbs)."""
+    ts = tensors_of(torch, x)
+    shape = torch.broadcast_shapes(*(t.shape for t in ts))
+    return with_tensors(torch, x, iter([t.expand(shape).reshape((-1,) + shape[-tail:])
+                                        for t in ts]))
+
+
+def mesh_path_checks(torch, stage: str, kept: dict, widths: dict, held: set) -> dict:
+    """Every (kernel, width) that a mesh stage launched and no earlier stage
+    held, held against its plain version on the operands of its first
+    launch at that width in the stage (kernels.capture_operands: the shard
+    blocks, the twiddle block, the lane rows, the tree levels, as the path
+    gave them), and added to `held`.  Each kernel runs at its own width on
+    its own operands; for a ROW_KERNELS kernel the plain version runs once
+    over the rows of all its widths (with the same non-tensor arguments),
+    its output split back by width (a plain call costs about the same at
+    any width: PR 11 call 8, ~2.5 s a MiMC call).  Fails on any difference,
+    and on a launched (kernel, width) whose operands were not kept;
+    returns the errors."""
+    from owshen_tpu_torch import kernels
+
+    launched = {(k, int(w)) for k, ws in widths.items() for w in ws}
+    if launched != set(kept):
+        fail(f"mesh {stage}: launched widths {sorted(launched - set(kept))} not held against "
+             f"their plain versions (kept but not counted: {sorted(set(kept) - launched)})")
+    dev, errs, groups = torch.device("cuda", torch.cuda.current_device()), {}, {}
+    for (name, w), args in sorted(kept.items()):
+        if (name, w) in held:
+            continue
+        t = time.time()
+        got = kernels.WRAPPERS[name](*copies(torch, args, dev))
+        if name in ROW_KERNELS:
+            tail = 2 if name.startswith("g2") else 1
+            key = (name,) + tuple(a for a in args if not isinstance(a, (tuple, torch.Tensor)))
+            groups.setdefault(key, []).append(
+                (f"{name} n={w}", as_rows(torch, copies(torch, args, dev), tail),
+                 as_rows(torch, got, tail)))
+        else:
+            errs[f"{name} n={w}"] = max_abs_err(
+                torch, got, kernels.PLAIN[name](*copies(torch, args, dev)))
+        held.add((name, w))
+        torch.cuda.synchronize()
+        CHECK_S[f"{name} n={w}"] = time.time() - t
+    for key, items in groups.items():
+        name, t = key[0], time.time()
+        n_rows = [tensors_of(torch, ops)[0].shape[0] for _, ops, _ in items]
+        ops = with_tensors(torch, items[0][1], iter([
+            torch.cat(col) for col in zip(*(tensors_of(torch, ops) for _, ops, _ in items))]))
+        want = [t.split(n_rows) for t in tensors_of(torch, kernels.PLAIN[name](*ops))]
+        for i, (case, _, got) in enumerate(items):
+            errs[case] = max_abs_err(torch, tuple(tensors_of(torch, got)),
+                                     tuple(w[i] for w in want))
+        torch.cuda.synchronize()
+        CHECK_S[f"{' '.join(key)} plain, {len(items)} widths"] = time.time() - t
+    print(f"mesh {stage}: {len(errs)} (kernel, width) pairs against their plain versions on the "
+          f"stage's operands ({len(kept) - len(errs)} held by an earlier stage), max |diff|: "
+          + json.dumps(dict(sorted(errs.items()))), flush=True)
+    bad = sorted(case for case, err in errs.items() if err != 0)
+    if bad:
+        fail(f"mesh {stage}: kernel disagrees with its plain version at {bad}")
+    return errs
+
+
+def mesh_stage(torch, out: dict, name: str, kind: str, fn):
+    """Run one stage of the mesh path with the launch counts zeroed just
+    before it and read just after, each kernel's operands kept at each
+    width: its seconds (the copies of the kept operands included) and
+    launches go in out, the kept operands (moved to the host, so that they
+    count in no later phase's peak memory) and widths in out["kept"] for
+    `mesh_checks`.  Fails if a kernel that a stage of this kind runs was
+    launched no time."""
+    from owshen_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with kernels.capture_operands() as kept:
+        t = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.time() - t
+    counts, widths = kernels.launch_counts(), kernels.launch_widths()
+    out["stages_s"][name] = secs
+    out["launches"][name] = nonzero(counts)
+    print(f"mesh {name}: {secs:.3f} s, launches {json.dumps(out['launches'][name])}", flush=True)
+    for k in MESH_STAGE_KERNELS[kind]:
+        if counts[k] <= 0:
+            fail(f"mesh {name}: kernel {k} was not launched")
+    cpu = torch.device("cpu")
+    out["kept"][name] = ({k: copies(torch, args, cpu) for k, args in kept.items()}, widths)
+    return res
+
+
+def mesh_checks(torch, *outs) -> None:
+    """The twin checks of the mesh stages (`mesh_path_checks`), each
+    launched (kernel, width) once, on the operands of the first stage that
+    launched it, run after the script's last profiled measurement: their
+    many small PyTorch launches made later profiler sessions lose kernel
+    records (PR 11 call 4: the 2^22 MSM's and the MiMC root's
+    timelines)."""
+    t, held = time.time(), set()
+    for out in outs:
+        for name, (kept, widths) in out.pop("kept").items():
+            out["path_checks"][name] = mesh_path_checks(torch, name, kept, widths, held)
+    torch.cuda.synchronize()
+    outs[0]["checks_s"] = time.time() - t
+    print(f"mesh twin checks: {outs[0]['checks_s']:.1f} s", flush=True)
+
+
+def mesh_busy(torch, out: dict, name: str, fn) -> None:
+    """The device-busy share of one more call of a mesh stage."""
+    wall, busy, _ = device_busy(torch, fn)
+    out["busy"][name] = {"wall_s": wall, "busy_s": busy, "busy_share": busy / wall}
+    print(f"mesh {name} under the profiler: {wall:.3f} s, device busy {busy:.4f} s "
+          f"({100 * busy / wall:.1f} %)", flush=True)
+
+
+def mesh_out() -> dict:
+    return {"stages_s": {}, "launches": {}, "path_checks": {}, "busy": {}, "kept": {}}
+
+
+def mesh_prove_phase(torch, dev, pool, builder, fixed) -> dict:
+    """The depth-16 withdraw statement proved over make_mesh(d) on the card
+    at d = 2 and 4 (the h pipeline's NTTs across the shards, every MSM
+    sharded), with the seed of sorted_withdraw: each proof must equal the
+    fixed engine's `fixed` point for point and verify."""
+    from owshen_tpu_torch.groth16 import groth16
+    from owshen_tpu_torch.parallel.mesh import make_mesh
+
+    out = mesh_out()
+    pub = builder.witness()[1:pool.pk.n_pub]
+    for d in MESH_PROVE_D:
+        mesh = make_mesh(d)
+        proof = mesh_stage(torch, out, f"prove d={d}", "prove", lambda: groth16.prove(
+            pool.pk, builder, seed=b"chip-smoke-d16-sorted", mesh=mesh, device=dev))
+        if (proof.a, proof.b, proof.c) != (fixed.a, fixed.b, fixed.c):
+            fail(f"mesh prove at d={d}: the proof differs from the fixed engine's")
+        if not groth16.verify(pool.vk, pub, proof):
+            fail(f"mesh prove at d={d}: the proof does not verify")
+    print(f"mesh prove (depth 16) at d={list(MESH_PROVE_D)} == the fixed engine's proof, "
+          "verified", flush=True)
+    mesh_busy(torch, out, f"prove d={MESH_PROVE_D[0]}", lambda: groth16.prove(
+        pool.pk, builder, seed=b"chip-smoke-d16-sorted", mesh=make_mesh(MESH_PROVE_D[0]),
+        device=dev))
+    return out
+
+
+def mesh_phase(torch, dev, msm_affine_want, mimc_leaves, mimc_root, entries, d16_root,
+               smi: str) -> dict:
+    """DistNtt 2^20, msm_dist 2^22, the MiMC and Poseidon roots over 2^20
+    leaves at d = 4, the depth-16 sparse tree at d = 8 and the dry run at
+    d = 2, 4 and 8, each bit for bit against the single-device result."""
+    from owshen_tpu_torch.curves import bn254
+    from owshen_tpu_torch.fields.field import FR
+    from owshen_tpu_torch.ops.merkle import merkle_root
+    from owshen_tpu_torch.ops.ntt import NttDomain
+    from owshen_tpu_torch.parallel.merkle_dist import DistSparseMerkleTree, merkle_root_dist
+    from owshen_tpu_torch.parallel.mesh import make_mesh
+    from owshen_tpu_torch.parallel.msm_dist import msm_dist
+    from owshen_tpu_torch.parallel.ntt_dist import DistNtt
+    from owshen_tpu_torch.runtime import dryrun
+
+    out = mesh_out()
+    # the single-device results
+    x = rand_field(torch, torch.Generator().manual_seed(20), FR.p, 1 << 20, dev)
+    dom = NttDomain(20)
+    want_fwd = dom.ntt(x)
+    want_inv = dom.intt(x)
+    pts, scalars, _ = msm_inputs(torch, dev, "g1", 1 << MSM_LOG_N, MSM_LOG_N)
+    want_pos = merkle_root(mimc_leaves, "poseidon")
+    idx = sorted(entries)
+    half = len(idx) // 2
+
+    mesh = make_mesh(MESH_D)
+    dn = DistNtt(mesh, 20)
+    fwd = mesh_stage(torch, out, f"DistNtt 2^20 forward d={MESH_D}", "DistNtt",
+                     lambda: dn.ntt(x))
+    inv = mesh_stage(torch, out, f"DistNtt 2^20 inverse d={MESH_D}", "DistNtt",
+                     lambda: dn.intt(x))
+    if not (torch.equal(fwd, want_fwd) and torch.equal(inv, want_inv)):
+        fail(f"DistNtt 2^20 at d={MESH_D} differs from NttDomain(20).ntt / intt")
+    got = mesh_stage(torch, out, f"msm_dist 2^22 d={MESH_D}", "msm_dist",
+                     lambda: msm_dist(mesh, bn254.G1, pts, scalars))
+    if msm_affine("g1", got) != msm_affine_want:
+        fail(f"msm_dist 2^22 at d={MESH_D} differs from ops.msm.msm's point")
+    mimc = mesh_stage(torch, out, f"merkle_root_dist mimc 2^20 d={MESH_D}", "mimc root",
+                      lambda: merkle_root_dist(mesh, mimc_leaves, "mimc"))
+    pos = mesh_stage(torch, out, f"merkle_root_dist poseidon 2^20 d={MESH_D}", "poseidon root",
+                     lambda: merkle_root_dist(mesh, mimc_leaves, "poseidon"))
+    if FR.decode(mimc[None]) != mimc_root or not torch.equal(pos, want_pos):
+        fail(f"merkle_root_dist over 2^20 leaves at d={MESH_D} differs from the single-device root")
+    tree = DistSparseMerkleTree(make_mesh(MESH_TREE_D), 16)
+    for i, part in enumerate((idx[:half], idx[half:])):
+        root = mesh_stage(torch, out, f"DistSparseMerkleTree d16 d={MESH_TREE_D} batch {i + 1}",
+                          "sparse tree",
+                          lambda: tree.insert_ints(part, [entries[j] for j in part]))
+    if FR.decode(root[None])[0] != d16_root or tree.root_int() != d16_root:
+        fail(f"DistSparseMerkleTree(16) at d={MESH_TREE_D} differs from the depth-16 pool's root")
+    try:
+        tree.insert_ints([idx[0], idx[0]], [1, 2])
+    except ValueError as err:
+        print(f"mesh DistSparseMerkleTree: duplicate index rejected ({err})", flush=True)
+    else:
+        fail("DistSparseMerkleTree accepted a duplicate index")
+    for d in DRYRUN_D[:-1]:
+        mesh_stage(torch, out, f"dryrun.run({d})", "dryrun", lambda: dryrun.run(d))
+    # the last in a clean interpreter, as __graft_entry__.py runs the reference's:
+    # its launches are the child's, not counted here, and its checks its own
+    t = time.time()
+    dryrun.run_subprocess(DRYRUN_D[-1])
+    out["stages_s"][f"dryrun.run_subprocess({DRYRUN_D[-1]})"] = time.time() - t
+    print("mesh: DistNtt, msm_dist, both dist roots, the sharded tree and the dry runs equal "
+          "their single-device results", flush=True)
+    mesh_busy(torch, out, f"DistNtt 2^20 forward d={MESH_D}", lambda: dn.ntt(x))
+    mesh_busy(torch, out, f"msm_dist 2^22 d={MESH_D}", lambda: msm_dist(mesh, bn254.G1, pts, scalars))
+    mesh_busy(torch, out, f"merkle_root_dist mimc 2^20 d={MESH_D}",
+              lambda: merkle_root_dist(mesh, mimc_leaves, "mimc"))
+    print(f"mesh stages on {smi}, seconds (shards share the one card: correctness runs, no "
+          "scaling): " + json.dumps({k: round(v, 4) for k, v in out["stages_s"].items()}),
+          flush=True)
+    return out
+
+
 def main() -> int:
     # keep CUPTI set up between profiler sessions (Kineto tears it down
     # after each by default): the timeline checks were verified this way
@@ -1779,10 +2093,11 @@ def main() -> int:
     kern = check_kernels(torch, dev)
     trip = round_trip_depth16(torch, dev)
     losses = width_losses(torch, dev, trip["widths"])
-    pool = trip.pop("pool")
-    withdraw_sorted = sorted_withdraw(torch, dev, pool, trip.pop("builder"))
-    vouchers = voucher_phase(torch, dev, pool, trip.pop("entries"))
-    del pool                    # its 5.4 GB of tables would count in the MSM's peak
+    pool, builder, entries = trip.pop("pool"), trip.pop("builder"), trip.pop("entries")
+    withdraw_sorted, fixed = sorted_withdraw(torch, dev, pool, builder)
+    mesh_prove = mesh_prove_phase(torch, dev, pool, builder, fixed)
+    vouchers = voucher_phase(torch, dev, pool, dict(entries))   # it adds its deposits
+    del pool, builder           # its 5.4 GB of tables would count in the MSM's peak
 
     t = time.time()
     digest = depth2_digest(dev)
@@ -1793,6 +2108,14 @@ def main() -> int:
     msmp = msm_phase(torch, dev)
     nttp = ntt_phase(torch, dev)
     mimcp = mimc_phase(torch, dev)
+    meshp = mesh_phase(torch, dev, msmp.pop("affine"), mimcp.pop("leaves"), mimcp.pop("root"),
+                       entries, trip.pop("root"), smi)
+    mesh_checks(torch, mesh_prove, meshp)
+    mesh_by_stage = {**mesh_prove["launches"], **meshp["launches"]}
+    mesh_launches = {k: sum(c.get(k, 0) for c in mesh_by_stage.values()) for k in KERNELS}
+    for name in MESH_KERNELS:
+        if mesh_launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the mesh path")
 
     # each kernel's launches on the path it belongs to: K1–K5 (and K1's G2
     # add and double) on the depth-16 round trip, K7 on the 2^20 NTT, K6 on
@@ -1827,9 +2150,13 @@ def main() -> int:
         "msm_2_22_widths": {k: msmp["widths"][k] for k in MSM_KERNELS},
         "withdraw_d16_sorted": withdraw_sorted,
         "vouchers": {k: v for k, v in vouchers.items() if k != "launches"},
+        "mesh": {**{k: {**mesh_prove[k], **meshp[k]} for k in mesh_out() if k != "kept"},
+                 "checks_s": mesh_prove["checks_s"], "checks_s_by_pair": CHECK_S},
+        "profiler_spin_loss": SPIN_LOSS,
         "launches_by_phase": {"depth16": trip["launches"], "deposit": deposit["launches"],
                               "msm_2_22": msmp["launches"], "ntt_2_20": nttp["launches"],
-                              "mimc_2_20": mimcp["launches"], "vouchers": vouchers["launches"]},
+                              "mimc_2_20": mimcp["launches"], "vouchers": vouchers["launches"],
+                              "mesh": mesh_launches},
         "card": smi, "total_s": time.time() - t_start}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -66,12 +66,15 @@ def mimc7_multi_gadget(b: Builder, inputs: list[LC]) -> LC:
 
 
 def merkle_path_gadget(b: Builder, leaf: LC, path_bits: list[LC],
-                       siblings: list[LC]) -> LC:
-    """Computes the Poseidon root from leaf + authentication path.
+                       siblings: list[LC], hash2=None) -> LC:
+    """Computes the root from leaf + authentication path.
 
-    path_bits[i] = 1 means the current node is the RIGHT child at level i."""
+    path_bits[i] = 1 means the current node is the RIGHT child at level i.
+    hash2(b, l, r) defaults to Poseidon(l, r)."""
+    if hash2 is None:
+        hash2 = lambda bb, l, r: poseidon_gadget(bb, [l, r])  # noqa: E731
     node = leaf
     for bit, sib in zip(path_bits, siblings):
         l, r = b.mux(bit, node, sib)
-        node = poseidon_gadget(b, [l, r])
+        node = hash2(b, l, r)
     return node

@@ -41,7 +41,7 @@ def g2_encode(points, device=None):
             FQ2.encode(zs, device=device))
 
 
-def g1_decode_many(p):
+def g1_decode(p):
     """Projective G1 tensors (any batch shape) -> flat [(x, y) or None],
     with the Z inversions done on the host."""
     X, Y, Z = (FQ.decode(c) for c in p)
@@ -55,7 +55,7 @@ def g1_decode_many(p):
     return out
 
 
-def g2_decode_many(p):
+def g2_decode(p):
     """Projective G2 tensors -> flat [((x0, x1), (y0, y1)) or None]."""
     X, Y, Z = (FQ2.decode(c) for c in p)
     out = []
@@ -68,11 +68,16 @@ def g2_decode_many(p):
     return out
 
 
+# the names the port used before it took the reference's
+g1_decode_many = g1_decode
+g2_decode_many = g2_decode
+
+
 def g1_decode_host(p):
     """One projective G1 point -> (x, y) ints or None."""
-    return g1_decode_many(p)[0]
+    return g1_decode(p)[0]
 
 
 def g2_decode_host(p):
     """One projective G2 point -> ((x0, x1), (y0, y1)) or None."""
-    return g2_decode_many(p)[0]
+    return g2_decode(p)[0]

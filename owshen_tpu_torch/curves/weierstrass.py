@@ -61,7 +61,7 @@ class Weierstrass:
         """(X/Z, Y/Z) with the identity mapped to (0, 0), one Fermat
         inversion of Z on K1.  Over Fq (G1) only: the port has no batched
         Fq2 product, and decodes G2 points on the host
-        (bn254.g2_decode_many)."""
+        (bn254.g2_decode)."""
         X, Y, Z = p
         zinv = self.K.inv(Z)
         return (self.K.mul(X, zinv), self.K.mul(Y, zinv))

@@ -9,6 +9,9 @@ owshen_tpu/groth16/groth16.py, with the prover's hot path on the card.
     the G2 add kernel, and the assembly adds — or, by choice or when the
     tables do not fit, the Pippenger engines of ops/msm.py with scalar
     ladders for the randomizer terms;
+  * over a mesh (parallel/): the h pipeline's NTTs across the shards
+    (DistNtt) and every commitment MSM sharded (msm_dist, the lane
+    engine on each shard);
   * setup points: fixed-base windowed multiplication (K2, K1);
   * verification: host pairing product (groth16/pairing.py).
 
@@ -208,6 +211,32 @@ def _h_scalars_device(dom: NttDomain, w_mont: torch.Tensor, mats) -> torch.Tenso
     return F.from_mont(dom.coset_intt(h_s))
 
 
+def _pad_for_mesh(pts, sc, d: int, curve):
+    """Pad (points, scalars) so n divides by the mesh size (identity points
+    with zero scalars add nothing)."""
+    n = sc.shape[0]
+    pad = (-n) % d
+    return (pts, sc) if pad == 0 else _pad_identity(curve, pts, sc, n + pad)
+
+
+def _h_scalars_dist(mesh, dom: NttDomain, w_mont: torch.Tensor, mats) -> torch.Tensor:
+    """The h pipeline with its three NTT round trips across the mesh (the
+    Bailey all_to_all of parallel/ntt_dist.DistNtt); the sparse matvec and
+    the coset and 1/Z products stay on the controller's device.  Equals
+    `_h_scalars_device` limb for limb."""
+    from ..parallel.ntt_dist import DistNtt
+
+    F = FR
+    dn = DistNtt(mesh, dom.log_n)
+    evals = torch.stack([_matvec(w_mont, m, dom.n) for m in mats], dim=1)  # (n, 3, 16)
+    coeffs = dn.intt(evals)
+    a_s, b_s, c_s = dn.ntt(F.mul(coeffs, dom._per_row("coset", coeffs))).unbind(dim=1)
+    zinv = F.const(dom.z_on_coset_inv(), device=w_mont.device)
+    h_s = F.mul(F.sub(F.mul(a_s, b_s), c_s), zinv)
+    h_c = dn.intt(h_s)
+    return F.from_mont(F.mul(h_c, dom._per_row("coset_inv", h_c)))
+
+
 def _table_n(pk: ProvingKey) -> int:
     """The padded point count shared by all of a key's fixed tables."""
     n_min = max(pk.a_g1[0].shape[0], pk.h_g1[0].shape[0],
@@ -272,30 +301,74 @@ def _tail_host(pk: ProvingKey) -> dict:
     return th
 
 
-def _prove_fixed(pk: ProvingKey, w_mont: torch.Tensor, r: int, s: int,
-                 h_sc: torch.Tensor) -> Proof:
-    """Commitments over the fixed tables.  Uses s·A = s·α + MSM_a(s·w) +
-    s·r·δ and r·B₁ = r·β + MSM_b1(r·w) + r·s·δ, so
+def _tails(pk: ProvingKey, r: int, s: int):
+    """The randomizer tails from the host's affine (α, β, δ)₁ / (β, δ)₂,
+    five oracle scalar multiplications, encoded on the key's device:
+    (tail_a = α + r·δ, tail_c = s·α + r·β + r·s·δ) as a two-point G1
+    batch, and tail_b2 = β₂ + s·δ₂ as one G2 point."""
+    th = _tail_host(pk)
+    dev = pk.device
+    oG1, oG2 = ocurve.G1, ocurve.G2
+    tail_a = oG1.add(th["alpha1"], oG1.mul(th["delta1"], r % P))
+    tail_c = oG1.add(oG1.add(oG1.mul(th["alpha1"], s % P), oG1.mul(th["beta1"], r % P)),
+                     oG1.mul(th["delta1"], (r * s) % P))
+    tail_b2 = oG2.add(th["beta2"], oG2.mul(th["delta2"], s % P))
+    return (bn254.g1_encode([tail_a, tail_c], device=dev),
+            tuple(a[0] for a in bn254.g2_encode([tail_b2], device=dev)))
+
+
+def _assemble(a_w, a_sw, b1_rw, k_w, h_h, b2_w, tails_g1, tail_b2) -> Proof:
+    """A = a_w + tail_a, B₂ = b2_w + tail_b2 and
+    C = a_sw + b1_rw (+ k_w) + h_h + tail_c from one-point G1 batches (k_w
+    None when the key has no K points) and G2 points; A and C's first sum
+    share one two-point add."""
+    G1, G2 = bn254.G1, bn254.G2
+    pair = G1.add(G1.cat([a_w, a_sw]), G1.cat([tuple(t[0:1] for t in tails_g1), b1_rw]))
+    A = tuple(a[0:1] for a in pair)
+    C = tuple(a[1:2] for a in pair)
+    if k_w is not None:
+        C = G1.add(C, k_w)
+    C = G1.add(C, h_h)
+    C = G1.add(C, tuple(t[1:2] for t in tails_g1))
+    B2 = G2.add(b2_w, tail_b2)
+    return Proof(a=bn254.g1_decode_host(A), b=bn254.g2_decode_host(B2),
+                 c=bn254.g1_decode_host(C))
+
+
+def _prove_core(pk: ProvingKey, w: list[int], r: int, s: int, h_sc: torch.Tensor,
+                mg1, mg2) -> Proof:
+    """The tail-free prover algebra over pluggable MSM backends.  Uses
+    s·A = s·α + MSM_a(s·w) + s·r·δ and r·B₁ = r·β + MSM_b1(r·w) + r·s·δ, so
       C = MSM_h(h) + MSM_k(w_priv) + MSM_a(s·w) + MSM_b1(r·w)
           + (s·α + r·β + r·s·δ)
-    needs no variable-point scalar multiplication on the card."""
+    needs no variable-point scalar multiplication.  mg1(which, scalars)
+    (which in "a", "b1", "k", "h") and mg2(scalars) return one projective
+    point each: msm_dist over a mesh."""
+    dev = pk.device
+    enc = lambda xs: FR.encode(xs, mont=False, device=dev)  # noqa: E731
+    one = lambda pt: tuple(a[None] for a in pt)  # noqa: E731
+    w_sc = enc(w)
+    a_w = one(mg1("a", w_sc))
+    a_sw = one(mg1("a", enc([(s * wi) % P for wi in w])))
+    b1_rw = one(mg1("b1", enc([(r * wi) % P for wi in w])))
+    b2_w = mg2(w_sc)
+    k_w = one(mg1("k", w_sc[pk.n_pub:])) if pk.k_g1 is not None else None
+    h_h = one(mg1("h", h_sc))
+    return _assemble(a_w, a_sw, b1_rw, k_w, h_h, b2_w, *_tails(pk, r, s))
+
+
+def _prove_fixed(pk: ProvingKey, w_mont: torch.Tensor, r: int, s: int,
+                 h_sc: torch.Tensor) -> Proof:
+    """`_prove_core`'s algebra over the fixed tables, its five G1 MSMs
+    stacked into one gather and one batched fold (`mul_multi`) and s·w,
+    r·w taken on the card."""
     fx = _fixed_tables(pk)
-    th = _tail_host(pk)
     dev = pk.device
     n, n_pub = fx.n, pk.n_pub
     slots = (0, 0, 1, 2, 3) if fx.has_k else (0, 0, 1, 2)
     if w_mont.shape[0] != n:
         w_mont = torch.cat([w_mont, torch.zeros((n - w_mont.shape[0], FR.L),
                                                 dtype=torch.int32, device=dev)])
-    # randomizer tails on the host: five oracle scalar multiplications
-    oG1, oG2 = ocurve.G1, ocurve.G2
-    tail_a = oG1.add(th["alpha1"], oG1.mul(th["delta1"], r % P))
-    tail_c = oG1.add(oG1.add(oG1.mul(th["alpha1"], s % P), oG1.mul(th["beta1"], r % P)),
-                     oG1.mul(th["delta1"], (r * s) % P))
-    tail_b2 = oG2.add(th["beta2"], oG2.mul(th["delta2"], s % P))
-    tails_g1 = bn254.g1_encode([tail_a, tail_c], device=dev)
-    tail_b2 = tuple(a[0] for a in bn254.g2_encode([tail_b2], device=dev))
-
     sr = FR.encode([s, r], device=dev)[:, None]                  # (2, 1, 16)
     w_sc = FR.from_mont(w_mont)                                   # (n, 16)
     sw, rw = FR.from_mont(FR.mul(w_mont[None], sr))               # (2, n, 16)
@@ -307,22 +380,30 @@ def _prove_fixed(pk: ProvingKey, w_mont: torch.Tensor, r: int, s: int,
                                                            device=dev)]))
     sets.append(h_pad)
     g1s = fx.g1.mul_multi(torch.stack(sets), slots)               # (S, ...) sums
-    b2_w = fx.b2.mul(w_sc)
-    S = len(slots)
     pick = lambda i: tuple(a[i:i + 1] for a in g1s)  # noqa: E731
-    G1, G2 = bn254.G1, bn254.G2
-    # A = a_w + tail_a and C's first term a_sw + b1_rw in one add
-    pair = G1.add(tuple(a[0:2] for a in g1s),
-                  tuple(torch.cat([t[0:1], a[2:3]]) for t, a in zip(tails_g1, g1s)))
-    A = tuple(a[0:1] for a in pair)
-    C = tuple(a[1:2] for a in pair)
-    if fx.has_k:
-        C = G1.add(C, pick(3))
-    C = G1.add(C, pick(S - 1))
-    C = G1.add(C, tuple(t[1:2] for t in tails_g1))
-    B2 = G2.add(b2_w, tail_b2)
-    return Proof(a=bn254.g1_decode_host(A), b=bn254.g2_decode_host(B2),
-                 c=bn254.g1_decode_host(C))
+    return _assemble(pick(0), pick(1), pick(2), pick(3) if fx.has_k else None,
+                     pick(len(slots) - 1), fx.b2.mul(w_sc), *_tails(pk, r, s))
+
+
+def _prove_mesh(pk: ProvingKey, w: list[int], r: int, s: int, h_sc: torch.Tensor, mesh,
+                msm_c: int, msm_lanes: int) -> Proof:
+    """The multi-device prover: `_prove_core` over msm_dist backends, each
+    MSM's points sharded across the mesh (padded with identities to a
+    multiple of its size) and the partials gathered and summed."""
+    from ..parallel.msm_dist import msm_dist
+
+    d = mesh.size
+    pts_g1 = {"a": pk.a_g1, "b1": pk.b_g1, "k": pk.k_g1, "h": pk.h_g1}
+
+    def mg1(which, sc):
+        pts, sc = _pad_for_mesh(pts_g1[which], sc, d, bn254.G1)
+        return msm_dist(mesh, bn254.G1, pts, sc, c=msm_c, lanes=msm_lanes)
+
+    def mg2(sc):
+        pts, sc = _pad_for_mesh(pk.b_g2, sc, d, bn254.G2)
+        return msm_dist(mesh, bn254.G2, pts, sc, c=msm_c, lanes=msm_lanes)
+
+    return _prove_core(pk, w, r, s, h_sc, mg1, mg2)
 
 
 def _device_mats(mats, device):
@@ -340,18 +421,16 @@ def _fixed_tables_fit(pk: ProvingKey) -> bool:
 
 
 def _resolve_engine(pk: ProvingKey, mesh, engine: str | None) -> str:
-    """The engine a prove runs: `engine`, or OWSHEN_PROVER_ENGINE when None,
-    with "fixed" sent to "sorted" when the key's tables do not fit.  An
-    engine the reference does not know is a ValueError and a `mesh` a
-    NotImplementedError, both before any work."""
+    """The engine a single-device prove runs: `engine`, or
+    OWSHEN_PROVER_ENGINE when None, with "fixed" sent to "sorted" when the
+    key's tables do not fit.  An engine the reference does not know is a
+    ValueError before any work, with or without a mesh; a mesh proves
+    through msm_dist whatever the engine, so its tables are not looked at."""
     if engine is None:
         engine = settings().prover_engine
     if engine not in ("fixed", "lane", "sorted"):
         raise ValueError(f"unknown prover engine {engine!r}: expected fixed|lane|sorted")
-    if mesh is not None:
-        raise NotImplementedError(
-            "the multi-device prover (mesh) is not ported yet (ROADMAP queue 1 item 6)")
-    if engine == "fixed" and not _fixed_tables_fit(pk):
+    if mesh is None and engine == "fixed" and not _fixed_tables_fit(pk):
         return "sorted"
     return engine
 
@@ -429,9 +508,13 @@ def prove(pk: ProvingKey, builder: Builder, seed: bytes | None = None,
     or "sorted" (`msm_sorted` at c = 8); resolved from OWSHEN_PROVER_ENGINE
     when None.  "fixed" with tables over OWSHEN_FIXED_TABLE_MAX_GB proves
     through "sorted".  `msm_c` and `msm_lanes` tune the lane engine; the
-    others ignore them, as in the reference.  A `mesh` (the multi-device
-    prover) is not ported and raises NotImplementedError.  All engines give
-    the same proof for the same seed."""
+    others ignore them, as in the reference.
+
+    mesh: a parallel.mesh.Mesh (the multi-device prover): the h pipeline's
+    NTTs run across its shards (DistNtt) and every commitment MSM is
+    sharded (msm_dist, the lane engine at `msm_c` / `msm_lanes` on each
+    shard), whatever the engine.  All engines and meshes give the same
+    proof for the same seed."""
     engine = _resolve_engine(pk, mesh, engine)
     dev = resolve_device(device)
     if pk.device != dev:
@@ -443,6 +526,9 @@ def prove(pk: ProvingKey, builder: Builder, seed: bytes | None = None,
     dom = _domain(n.bit_length() - 1)
     mats = _device_mats(builder.compiled(n), dev)
     w_mont = FR.encode(w, device=dev)
+    if mesh is not None:
+        h_sc = _h_scalars_dist(mesh, dom, w_mont, mats)[: n - 1]
+        return _prove_mesh(pk, w, r, s, h_sc, mesh, msm_c, msm_lanes)
     h_sc = _h_scalars_device(dom, w_mont, mats)[: n - 1]
     if engine == "fixed":
         return _prove_fixed(pk, w_mont, r, s, h_sc)

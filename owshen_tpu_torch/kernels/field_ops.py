@@ -201,6 +201,26 @@ def count_launch(wrapper, n: int) -> None:
     bucket[1] += n
 
 
+# {(wrapper, width): operands} while kernels.capture_operands() is on, else None
+CAPTURED = None
+
+
+def _copy(x):
+    return tuple(_copy(a) for a in x) if isinstance(x, tuple) else (
+        x.clone() if isinstance(x, torch.Tensor) else x)
+
+
+def keep_operands(wrapper, n: int, *args) -> None:
+    """Under kernels.capture_operands(): a copy of the operands of
+    `wrapper`'s first launch over n items at n's width (bucketed as
+    `count_launch` does), taken before the launch; its plain twin takes the
+    same arguments.  Counts nothing."""
+    if CAPTURED is not None:
+        key = (wrapper, 1 << max(0, n - 1).bit_length())
+        if key not in CAPTURED:
+            CAPTURED[key] = _copy(args)
+
+
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -218,6 +238,7 @@ def _launch_binary(entry: str, wrapper, a, b, field: str) -> torch.Tensor:
         else:
             ops.append(kernel_operand(x.expand(shape)))
             steps.append(1)
+    keep_operands(wrapper, n, a, b, field)
     out = torch.empty((n, L), dtype=torch.int32, device=a.device)
     lib = build.library("field_ops")
     rc = getattr(lib, entry)(ops[0].data_ptr(), ops[1].data_ptr(), out.data_ptr(),

@@ -18,8 +18,9 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .field_ops import (add_lm, count_launch, from_lm, kernel_operand, mul_lm, on_cpu,
-                        PLAIN_CHUNK, plain_chunked, plain_consts, stream_handle, sub_lm, to_lm)
+from .field_ops import (add_lm, count_launch, from_lm, keep_operands, kernel_operand, mul_lm,
+                        on_cpu, PLAIN_CHUNK, plain_chunked, plain_consts, stream_handle, sub_lm,
+                        to_lm)
 
 
 class FqOps:
@@ -126,10 +127,12 @@ def g1_double_plain(p):
 
 
 def _launch(entry: str, wrapper, coords):
+    pts = tuple(tuple(coords[i:i + 3]) for i in range(0, len(coords), 3))
     coords, shape = broadcast_coords(*coords)
     ops = [kernel_operand(c) for c in coords]
     n = ops[0].shape[0]
     dev = ops[0].device
+    keep_operands(wrapper, n, *pts)
     outs = [torch.empty((n, 16), dtype=torch.int32, device=dev) for _ in range(3)]
     lib = build.library("g1")
     rc = getattr(lib, entry)(*(t.data_ptr() for t in ops + outs), n, stream_handle(dev))

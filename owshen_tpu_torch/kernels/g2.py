@@ -24,8 +24,8 @@ import torch
 from ..oracle.curve import B_G2
 from ..oracle.field import P_FQ
 from . import build
-from .field_ops import (add_lm, count_launch, from_lm, kernel_operand, L, MASK, mul_lm,
-                        on_cpu, PLAIN_CHUNK, plain_chunked, plain_consts, stream_handle,
+from .field_ops import (add_lm, count_launch, from_lm, keep_operands, kernel_operand, L, MASK,
+                        mul_lm, on_cpu, PLAIN_CHUNK, plain_chunked, plain_consts, stream_handle,
                         sub_lm, to_lm)
 from .g1 import add_lm_pts, broadcast_coords, double_lm_pts
 
@@ -136,10 +136,12 @@ def g2_double_plain(p):
 
 
 def _launch(entry: str, wrapper, coords):
+    pts = tuple(tuple(coords[i:i + 3]) for i in range(0, len(coords), 3))
     coords, shape = _g2_coords(coords)
     ops = [kernel_operand(c) for c in coords]         # (2N, 16): c0, c1 of each point
     n = ops[0].shape[0] // 2
     dev = ops[0].device
+    keep_operands(wrapper, n, *pts)
     outs = [torch.empty((2 * n, L), dtype=torch.int32, device=dev) for _ in range(3)]
     lib = build.library("g2")
     rc = getattr(lib, entry)(*(t.data_ptr() for t in ops + outs), n, stream_handle(dev))

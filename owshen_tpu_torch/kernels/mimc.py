@@ -14,8 +14,8 @@ import torch
 
 from ..ops.constants import mimc7_constants
 from . import build
-from .field_ops import (MODULI, add_lm, count_launch, from_lm, kernel_operand, mul_lm, on_cpu,
-                        plain_consts, stream_handle, to_lm)
+from .field_ops import (MODULI, add_lm, count_launch, from_lm, keep_operands, kernel_operand,
+                        mul_lm, on_cpu, plain_consts, stream_handle, to_lm)
 
 
 @functools.lru_cache(maxsize=None)
@@ -60,6 +60,7 @@ def mimc_hash2(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     lt = kernel_operand(left.expand(shape))
     rt = kernel_operand(right.expand(shape))
     n = lt.shape[0]
+    keep_operands(mimc_hash2, n, left, right)
     out = torch.empty((n, 16), dtype=torch.int32, device=lt.device)
     rc = build.library("mimc").mimc2_launch(lt.data_ptr(), rt.data_ptr(), out.data_ptr(), n,
                                             stream_handle(lt.device))

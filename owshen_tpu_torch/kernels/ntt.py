@@ -24,8 +24,8 @@ import functools
 import torch
 
 from . import build
-from .field_ops import (FIELD_INDEX, L, count_launch, kernel_operand, mod_add_plain,
-                        mod_sub_plain, mont_mul_plain, on_cpu, stream_handle)
+from .field_ops import (FIELD_INDEX, L, count_launch, keep_operands, kernel_operand,
+                        mod_add_plain, mod_sub_plain, mont_mul_plain, on_cpu, stream_handle)
 
 MAX_COLS_LOGN = 12   # a 2^12 column and its twiddles fill 194 KB of shared memory
 
@@ -91,6 +91,7 @@ def butterfly_stage(x: torch.Tensor, pows: torch.Tensor, log_m: int,
         raise ValueError("a stage of 2^31 or more butterflies")
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
+    keep_operands(butterfly_stage, (n // 2) * batch, x, pows, log_m, field)
     p = kernel_operand(pows)
     rc = build.library("ntt").ntt_stage_launch(x.data_ptr(), p.data_ptr(), n, batch, log_m,
                                                FIELD_INDEX[field], stream_handle(x.device))
@@ -124,6 +125,7 @@ def ntt_cols(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
         return ntt_cols_plain(x, tw)
     xt, t = kernel_operand(x), kernel_operand(tw)
     cols = x.shape[1]
+    keep_operands(ntt_cols, cols, x, tw)
     out = torch.empty_like(xt)
     rc = build.library("ntt").ntt_cols_launch(xt.data_ptr(), t.data_ptr(), out.data_ptr(),
                                               log_n1, cols, stream_handle(x.device))

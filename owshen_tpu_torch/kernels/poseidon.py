@@ -15,8 +15,8 @@ import torch
 
 from ..ops.constants import POSEIDON_RF, POSEIDON_RP, poseidon_params
 from . import build
-from .field_ops import (MODULI, add_lm, count_launch, from_lm, kernel_operand, mul_lm, on_cpu,
-                        plain_consts, stream_handle, to_lm)
+from .field_ops import (MODULI, add_lm, count_launch, from_lm, keep_operands, kernel_operand,
+                        mul_lm, on_cpu, plain_consts, stream_handle, to_lm)
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,6 +75,7 @@ def poseidon_hash2(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     lt = kernel_operand(left.expand(shape))
     rt = kernel_operand(right.expand(shape))
     n = lt.shape[0]
+    keep_operands(poseidon_hash2, n, left, right)
     out = torch.empty((n, 16), dtype=torch.int32, device=lt.device)
     lib = build.library("poseidon")
     rc = lib.poseidon2_launch(lt.data_ptr(), rt.data_ptr(), out.data_ptr(), n,

@@ -10,7 +10,12 @@ complete adds.  Over G1 every add and double is one K2 / K3 launch.
 Tables are stored as one row matrix (W, D, N, F): F int32 values per point
 (x | y | z), N the points of every set side by side, so one build and one
 gather serve all the prover's G1 point sets.  At c = 4 (W = 64, D = 9) a set
-of n points takes 64·9·n rows.
+of n points takes 64·9·n rows.  The public functions take the reference's
+parameters: `msm_fixed` and `FixedMsm.from_table` a table as a point tuple
+with leaves (W, D, n, ...), the form the reference builds and checkpoints;
+the port's rows stay behind `_msm_fixed_rows`.  The reference stacks a
+group's tables one after another, (T·W·D·n, F); `_to_table_major` and
+`_from_table_major` convert for checkpoints.
 """
 
 from __future__ import annotations
@@ -49,12 +54,13 @@ def build_table(curve, points, c: int = 4):
     return rows, widths, shapes
 
 
-def fold_sum_batched(curve, pts):
+def fold_sum_batched(curve, pts, chunk: int = 1 << 14):
     """Per-set Σ over axis 1 of an (S, n, ...) point tuple, n a power of
     two: a halving tree, each level one (S, n/2)-wide add of the lower half
     and the upper half.  (The JAX package folds through lax.scans of
     fixed-width adds to keep one add in its compiled graph; eager PyTorch
-    has no such cost, and log₂n wide launches beat ~180 narrow ones.)"""
+    has no such cost, and log₂n wide launches beat ~180 narrow ones.)
+    `chunk`, the reference's scan width, is accepted and ignored."""
     n = pts[0].shape[1]
     while n > 1:
         n //= 2
@@ -62,18 +68,22 @@ def fold_sum_batched(curve, pts):
     return tuple(a[:, 0] for a in pts)
 
 
-def fold_sum(curve, pts):
-    """Σ of an (n, ...) point tuple, n a power of two."""
+def fold_sum(curve, pts, chunk: int = 1 << 14):
+    """Σ of an (n, ...) point tuple, n a power of two (`chunk` ignored, as
+    in fold_sum_batched)."""
     return tuple(a[0] for a in fold_sum_batched(curve, tuple(a[None] for a in pts)))
 
 
 def msm_fixed_multi(curve, rows, widths, shapes, scalars, n: int, slots,
-                    c: int = 4):
+                    c: int = 4, chunk: int = 1 << 14):
     """S fixed-table MSMs in one pass.
 
-    rows: (W, D, T·n, F) table of T point sets of n points; scalars:
-    canonical int32[S, n, 16]; slots: set -> table index (sets may share a
-    table).  Returns a projective tuple of (S, ...) per-set sums."""
+    rows: (W, D, T·n, F) table of T point sets of n points side by side
+    (the reference concatenates its T tables instead, (T·W·D·n, F);
+    `_to_table_major` / `_from_table_major` convert); scalars: canonical
+    int32[S, n, 16]; slots: set -> table index (sets may share a table).
+    Returns a projective tuple of (S, ...) per-set sums.  `chunk` is the
+    reference's fold width, accepted and ignored."""
     K = curve.K
     W, D, N, F = rows.shape
     S = scalars.shape[0]
@@ -96,18 +106,60 @@ def msm_fixed_multi(curve, rows, widths, shapes, scalars, n: int, slots,
     return fold_sum_batched(curve, tuple(to_sets(a) for a in (x, y, z)))
 
 
-def msm_fixed(curve, rows, widths, shapes, scalars, c: int = 4):
-    """One MSM against a single-set table (rows (W, D, n, F)); scalars:
-    canonical int32[n, 16]."""
+def _msm_fixed_rows(curve, rows, widths, shapes, scalars, c: int = 4):
+    """One MSM against a single-set table in the port's row form (rows
+    (W, D, n, F)); scalars: canonical int32[n, 16]."""
     n = rows.shape[2]
     out = msm_fixed_multi(curve, rows, widths, shapes, scalars[None], n, (0,), c)
     return tuple(a[0] for a in out)
 
 
+def _table_rows(table):
+    """A `build_table`-shaped point tuple, leaves (W, D, n, ...) — the
+    reference's table — -> the port's rows (W, D, n, F), widths, shapes."""
+    W, D, n = table[0].shape[:3]
+    rows, widths, shapes = _flat_rows(tuple(a.reshape((W * D * n,) + a.shape[3:])
+                                            for a in table))
+    return rows.view(W, D, n, -1), widths, shapes
+
+
+def _rows_table(rows, widths, shapes):
+    """The inverse of `_table_rows`: leaves (W, D, n, ...) as views of rows."""
+    W, D, n, F = rows.shape
+    return tuple(a.reshape((W, D, n) + tuple(s))
+                 for a, s in zip(_unflat_rows(rows.reshape(-1, F), widths, shapes), shapes))
+
+
+def _to_table_major(rows, n_tables: int):
+    """The port's rows (W, D, T·n, F) -> the reference's concatenated
+    tables (T·W·D·n, F), table t's row (w, d, i) at t·W·D·n + (w·D + d)·n + i."""
+    W, D, N, F = rows.shape
+    n = N // n_tables
+    return rows.view(W, D, n_tables, n, F).permute(2, 0, 1, 3, 4).reshape(-1, F)
+
+
+def _from_table_major(rows, n: int, n_tables: int, c: int = 4):
+    """The inverse of `_to_table_major`."""
+    W, D, F = 256 // c, (1 << (c - 1)) + 1, rows.shape[-1]
+    return rows.view(n_tables, W, D, n, F).permute(1, 2, 0, 3, 4).reshape(W, D, n_tables * n, F)
+
+
+def msm_fixed(curve, table, scalars, c: int = 4, chunk: int = 1 << 14):
+    """MSM against a precomputed table: `table` a point tuple with leaves
+    (W, D, n, ...), table[w, d] = d · 2^(c·w) · P (the reference's
+    `build_table` result, or `FixedMsm.table`); scalars: canonical
+    int32[n, 16] (shorter batches zero-padded by the caller).  `chunk`,
+    the reference's fold width, is accepted and ignored."""
+    rows, widths, shapes = _table_rows(table)
+    if scalars.shape[0] != rows.shape[2]:
+        raise ValueError(f"{scalars.shape[0]} scalars for a table of {rows.shape[2]} points")
+    return _msm_fixed_rows(curve, rows, widths, shapes, scalars, c)
+
+
 class FixedMsmGroup:
     """Same-size fixed point sets sharing one table and one fused compute
     path.  Build from point sets (one table build over all of them side by
-    side) or restore from rows (`from_rows`)."""
+    side) or restore from rows in the port's form (`from_rows`)."""
 
     def __init__(self, curve, point_sets, c: int = 4, n_min: int = 1,
                  _rows=None, _meta=None):
@@ -147,6 +199,19 @@ class FixedMsm(FixedMsmGroup):
         super().__init__(curve, None if points is None else [points], c, n_min,
                          _rows, _meta)
 
+    @classmethod
+    def from_table(cls, curve, table, c: int = 4):
+        """Restore from a table point tuple, leaves (W, D, n, ...): the
+        reference's serialized form, or `.table` of another FixedMsm."""
+        rows, widths, shapes = _table_rows(table)
+        return cls(curve, None, c=c, _rows=rows, _meta=(rows.shape[2], 1, widths, shapes))
+
+    @property
+    def table(self):
+        """The table as a point tuple with leaves (W, D, n, ...), views of
+        the rows."""
+        return _rows_table(self.rows, self.widths, self.shapes)
+
     def mul(self, scalars):
         """scalars: canonical int32[k, 16] with k <= n (zero-padded here)."""
         k = scalars.shape[0]
@@ -154,4 +219,4 @@ class FixedMsm(FixedMsmGroup):
             pad = torch.zeros((self.n - k, scalars.shape[1]), dtype=scalars.dtype,
                               device=scalars.device)
             scalars = torch.cat([scalars, pad])
-        return msm_fixed(self.curve, self.rows, self.widths, self.shapes, scalars, self.c)
+        return _msm_fixed_rows(self.curve, self.rows, self.widths, self.shapes, scalars, self.c)

@@ -58,63 +58,76 @@ def host_combine():
     return combine
 
 
-def _pairs(K, ps, qs):
-    """The affine sums that need a slope: (indices, denominators), with the
-    identity cases and P + (−P) written into `out` already."""
-    out = [q if p is None else p for p, q in zip(ps, qs)]
-    idx, dens = [], []
-    for i, (p, q) in enumerate(zip(ps, qs)):
-        if p is None or q is None:
+def _g1_batch_add(ps, qs):
+    """G1 on bare ints: the slopes' denominators and their prefix products
+    in one pass, one inversion, the sums in a second pass."""
+    out = list(qs)
+    todo, prefix, acc = [], [], 1
+    for i, p in enumerate(ps):
+        if p is None:
             continue
-        if p[0] != q[0]:
-            dens.append(K.sub(q[0], p[0]))
-        elif p[1] == q[1]:
-            dens.append(K.add(p[1], p[1]))
+        q = qs[i]
+        if q is None:
+            out[i] = p
+            continue
+        x1, y1 = p
+        x2, y2 = q
+        if x1 != x2:
+            num, den = y2 - y1, x2 - x1
+        elif y1 == y2:
+            num, den = 3 * x1 * x1, 2 * y1
         else:
             out[i] = None                          # P + (−P)
             continue
-        idx.append(i)
-    return out, idx, dens
-
-
-def _g1_batch_add(ps, qs):
-    out, idx, dens = _pairs(ocurve.FQ1, ps, qs)
-    prefix, acc = [1], 1
-    for d in dens:
-        acc = acc * d % Q
         prefix.append(acc)
-    inv = pow(acc, -1, Q)
-    for j in range(len(idx) - 1, -1, -1):
-        d_inv = inv * prefix[j] % Q
-        inv = inv * dens[j] % Q
-        (x1, y1), (x2, y2) = ps[idx[j]], qs[idx[j]]
-        lam = ((y2 - y1) if x1 != x2 else 3 * x1 * x1) * d_inv % Q
+        acc = acc * den % Q
+        todo.append((i, x1, y1, x2, num, den))
+    inv = pow(acc, -1, Q) if todo else 0
+    for k in range(len(todo) - 1, -1, -1):
+        i, x1, y1, x2, num, den = todo[k]
+        lam = num * (inv * prefix[k] % Q) % Q
+        inv = inv * den % Q
         x3 = (lam * lam - x1 - x2) % Q
-        out[idx[j]] = (x3, (lam * (x1 - x3) - y1) % Q)
+        out[i] = (x3, (lam * (x1 - x3) - y1) % Q)
     return out
 
 
 def _g2_batch_add(ps, qs):
-    out, idx, dens = _pairs(ocurve.FQ2I, ps, qs)
-    prefix, a0, a1 = [(1, 0)], 1, 0
-    for d0, d1 in dens:
-        a0, a1 = (a0 * d0 - a1 * d1) % Q, (a0 * d1 + a1 * d0) % Q
+    """G2 on bare int pairs (Fq2 = Fq[u]/(u² + 1)), as _g1_batch_add."""
+    out = list(qs)
+    todo, prefix, a0, a1 = [], [], 1, 0
+    for i, p in enumerate(ps):
+        if p is None:
+            continue
+        q = qs[i]
+        if q is None:
+            out[i] = p
+            continue
+        (x0, x1), (y0, y1) = p
+        (u0, u1), (w0, w1) = q
+        if (x0, x1) != (u0, u1):
+            n0, n1, d0, d1 = w0 - y0, w1 - y1, u0 - x0, u1 - x1
+        elif (y0, y1) == (w0, w1):
+            n0, n1, d0, d1 = 3 * (x0 * x0 - x1 * x1), 6 * x0 * x1, 2 * y0, 2 * y1
+        else:
+            out[i] = None                          # P + (−P)
+            continue
         prefix.append((a0, a1))
+        a0, a1 = (a0 * d0 - a1 * d1) % Q, (a0 * d1 + a1 * d0) % Q
+        todo.append((i, x0, x1, y0, y1, u0, u1, n0, n1, d0, d1))
+    if not todo:
+        return out
     norm_inv = pow((a0 * a0 + a1 * a1) % Q, -1, Q)
     i0, i1 = a0 * norm_inv % Q, -a1 * norm_inv % Q
-    for j in range(len(idx) - 1, -1, -1):
-        (p0, p1), (d0, d1) = prefix[j], dens[j]
-        v0, v1 = (i0 * p0 - i1 * p1) % Q, (i0 * p1 + i1 * p0) % Q      # 1 / dens[j]
+    for k in range(len(todo) - 1, -1, -1):
+        i, x0, x1, y0, y1, u0, u1, n0, n1, d0, d1 = todo[k]
+        p0, p1 = prefix[k]
+        v0, v1 = (i0 * p0 - i1 * p1) % Q, (i0 * p1 + i1 * p0) % Q      # 1 / den
         i0, i1 = (i0 * d0 - i1 * d1) % Q, (i0 * d1 + i1 * d0) % Q
-        ((x0, x1), (y0, y1)), ((u0, u1), (w0, w1)) = ps[idx[j]], qs[idx[j]]
-        if (x0, x1) != (u0, u1):
-            n0, n1 = w0 - y0, w1 - y1
-        else:
-            n0, n1 = 3 * (x0 * x0 - x1 * x1), 6 * x0 * x1
         l0, l1 = (n0 * v0 - n1 * v1) % Q, (n0 * v1 + n1 * v0) % Q
         s0, s1 = (l0 * l0 - l1 * l1 - x0 - u0) % Q, (2 * l0 * l1 - x1 - u1) % Q
         t0, t1 = x0 - s0, x1 - s1
-        out[idx[j]] = ((s0, s1), ((l0 * t0 - l1 * t1 - y0) % Q, (l0 * t1 + l1 * t0 - y1) % Q))
+        out[i] = ((s0, s1), ((l0 * t0 - l1 * t1 - y0) % Q, (l0 * t1 + l1 * t0 - y1) % Q))
     return out
 
 

@@ -12,14 +12,19 @@ build on the CPU twins takes minutes (chip_smoke.py resumes the depth-16
 pool on the card and proves from its restored tables).  Equality is exact
 throughout."""
 
+import dataclasses
 import os
+import pickle
 import random
+import sys
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from owshen_tpu.groth16 import groth16 as jgroth16
+from owshen_tpu.oracle import curve as ocurve
 from owshen_tpu.ops import merkle as jmerkle
 from owshen_tpu.runtime import checkpoint as jcheckpoint
 from owshen_tpu.runtime import store as jstore
@@ -151,7 +156,11 @@ def test_tree_files_load_across_packages(tmp_path, jax_native):
     assert np.array_equal(back.nodes.numpy(), np.asarray(jt.nodes).astype(np.int32))
 
 
-def test_pool_checkpoint_keeps_undo_log_and_tables(tmp_path, monkeypatch):
+def tiny_pool():
+    """A depth-2 port pool on the CPU with a tiny circuit's keys, two
+    deposit batches, a spent nullifier, and seeded rows standing in for
+    built fixed tables: (pool, root after the first batch, commitments,
+    G1 rows and meta, G2 rows and meta)."""
     b = Builder()
     for _ in range(5):
         b.pub()
@@ -166,22 +175,17 @@ def test_pool_checkpoint_keeps_undo_log_and_tables(tmp_path, monkeypatch):
     pool.deposit(coms[2:], [0xD2, 0xD3], amounts=[5, 7], tokens=[0, 8])
     pool.nullifiers.add(0x5EED)
     pool.executed.add(0x5EED)
-    # seeded table rows stand in for built ones
     gen = torch.Generator().manual_seed(11)
-    rows1 = torch.randint(0, 1 << 16, (64, 9, 4, 2 * 48), generator=gen, dtype=torch.int32)
-    rows2 = torch.randint(0, 1 << 16, (64, 9, 4, 96), generator=gen, dtype=torch.int32)
-    meta1 = (4, 2, [16, 16, 16] * 2, [(16,)] * 6)
-    meta2 = (4, 1, [32, 32, 32], [(2, 16)] * 3)
-    groth16.restore_fixed_tables(pool.pk, FixedMsmGroup.from_rows(bn254.G1, rows1, meta1),
-                                 FixedMsm.from_rows(bn254.G2, rows2, meta2))
-    monkeypatch.setattr(checkpoint, "_BLOB_CHUNK", 1 << 16)    # the tables span chunks
-    path = str(tmp_path / "pool.db")
-    checkpoint.save_pool(pool, path)
-    with store.open_store(path) as st:
-        assert int(st.get(b"fxtab/n")) > 1
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        checkpoint.load_pool(path)                    # the card unless the CPU is asked for
-    got = checkpoint.load_pool(path, device="cpu")
+    g1 = (torch.randint(0, 1 << 16, (64, 9, 2 * 4, 48), generator=gen, dtype=torch.int32),
+          (4, 2, [16, 16, 16], [(16,)] * 3))
+    b2 = (torch.randint(0, 1 << 16, (64, 9, 4, 96), generator=gen, dtype=torch.int32),
+          (4, 1, [32, 32, 32], [(2, 16)] * 3))
+    groth16.restore_fixed_tables(pool.pk, FixedMsmGroup.from_rows(bn254.G1, *g1),
+                                 FixedMsm.from_rows(bn254.G2, *b2))
+    return pool, root_a, coms, g1, b2
+
+
+def assert_same_pool(got, pool, g1, b2):
     for attr in ("depth", "next_index", "deposited", "minted", "nullifiers", "executed",
                  "balances", "roots", "vk", "seq_pub", "_seq_priv", "device"):
         assert getattr(got, attr) == getattr(pool, attr), attr
@@ -190,12 +194,120 @@ def test_pool_checkpoint_keeps_undo_log_and_tables(tmp_path, monkeypatch):
         a, b = getattr(pool.pk, f), getattr(got.pk, f)
         assert (a == b) if not isinstance(a, tuple) else all(map(torch.equal, a, b)), f
     fx = got.pk._fixed
-    assert torch.equal(fx.g1.rows, rows1) and torch.equal(fx.b2.rows, rows2)
-    assert (fx.g1.meta, fx.b2.meta) == (meta1, meta2)
+    assert torch.equal(fx.g1.rows, g1[0]) and torch.equal(fx.b2.rows, b2[0])
+    assert (fx.g1.meta, fx.b2.meta) == (g1[1], b2[1])
     assert [(list(r["rows"]), r["count"]) for r in got._undo] == \
         [(list(r["rows"]), r["count"]) for r in pool._undo]
     assert all(torch.equal(r["prior"], s["prior"]) for r, s in zip(got._undo, pool._undo))
+
+
+def test_pool_checkpoint_keeps_undo_log_and_tables(tmp_path, monkeypatch):
+    pool, root_a, coms, g1, b2 = tiny_pool()
+    monkeypatch.setattr(checkpoint, "_BLOB_CHUNK", 1 << 16)    # the tables span chunks
+    path = str(tmp_path / "pool.db")
+    checkpoint.save_pool(pool, path)
+    with store.open_store(path) as st:
+        assert int(st.get(b"fxtab/n")) > 1
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        checkpoint.load_pool(path)                    # the card unless the CPU is asked for
+    got = checkpoint.load_pool(path, device="cpu")
+    assert_same_pool(got, pool, g1, b2)
     # a pop after the reload restores the earlier root
     assert got.pop_batch() == 2
     assert got.tree.root_int() == root_a == oracle_sparse_root(dict(enumerate(coms[:2])), DEPTH)
     assert got.balances == {0: 7, 8: 0}
+
+
+def reference_tables(point_sets, c: int = 4):
+    """Fixed tables in the JAX package's own objects, built on the host
+    with no jit: table[w, d] = d·2^(c·w)·P (`build_table`'s definition) for
+    each G1 set, its (W, D, n) points encoded by the JAX package's
+    `g1_encode`, flattened by its `_flat_rows` and stacked set after set as
+    its FixedMsmGroup does; the G2 table is seeded placeholder limbs.
+    Returns a stand-in key whose `_fixed` its save_prover_tables writes."""
+    from types import SimpleNamespace
+
+    from owshen_tpu.curves import bn254 as jbn254
+    from owshen_tpu.ops import msm_fixed as jmsm_fixed
+    from owshen_tpu.ops.msm import _flat_rows
+
+    W, D, n = 256 // c, (1 << (c - 1)) + 1, len(point_sets[0])
+    tabs = []
+    for pts in point_sets:
+        table = [[None] * n for _ in range(W * D)]          # row (w·D + d), point i
+        for i, base in enumerate(pts):
+            for w in range(W):
+                acc = None
+                for d in range(D):
+                    table[w * D + d][i] = acc
+                    acc = ocurve.G1.add(acc, base)
+                for _ in range(c):
+                    base = ocurve.G1.add(base, base)
+        rows, widths, shapes = _flat_rows(jbn254.g1_encode([p for row in table for p in row]))
+        tabs.append(rows)
+    g1 = jmsm_fixed.FixedMsmGroup.from_rows(
+        jbn254.G1, jnp.concatenate(tabs), (n, len(tabs), widths, shapes), c=c)
+    gen = np.random.default_rng(12)
+    b2 = jmsm_fixed.FixedMsm.from_table(jbn254.G2, tuple(
+        jnp.asarray(gen.integers(0, 1 << 16, (W, D, n, 2, 16), dtype=np.uint32))
+        for _ in range(3)), c=c)
+    return SimpleNamespace(_fixed=SimpleNamespace(n=n, has_k=False, g1=g1, b2=b2))
+
+
+def test_pool_files_load_across_packages(tmp_path, jax_native, monkeypatch):
+    """A pool saved by the port has the JAX package's keys, layout and
+    uint32 dtypes, and the JAX package's load_pool reads it; saved again by
+    the JAX package, with its own VerifyingKey, it loads in the port with
+    every owshen_tpu module made unimportable, equal to the pool saved; a
+    host record holding any other class of the JAX package is refused by
+    name.  Fixed G1 tables of real points (two sets of two), saved by the
+    JAX package's save_prover_tables, load in the port and its mul_multi
+    gives the oracle's MSMs."""
+    pool, _, _, g1, b2 = tiny_pool()
+    port_path, jax_path = str(tmp_path / "port.db"), str(tmp_path / "jax.db")
+    checkpoint.save_pool(pool, port_path)
+    with jstore.open_store(port_path) as st:
+        tables = pickle.loads(jcheckpoint._get_blob(st, b"fxtab"))
+        pk_payload = pickle.loads(st.get(b"pk"))
+        undo = pickle.loads(st.get(b"pool/host"))["undo"]
+    assert set(tables) == {"n", "has_k", "g1_rows", "g1_meta", "g1_c", "b2_table", "b2_c"}
+    assert (tables["n"], tables["has_k"]) == (pool.pk._fixed.n, pool.pk._fixed.has_k)
+    # the reference's layout: table t's row (w, d, i) at t·W·D·n + (w·D + d)·n + i
+    want = g1[0].view(64, 9, 2, 4, 48).permute(2, 0, 1, 3, 4).reshape(-1, 48)
+    assert tables["g1_rows"].dtype == np.uint32
+    assert np.array_equal(tables["g1_rows"].astype(np.int32), want.numpy())
+    assert [a.shape for a in tables["b2_table"]] == [(64, 9, 4, 2, 16)] * 3
+    arrays = list(tables["b2_table"]) + [r["prior"] for r in undo] \
+        + [a for v in pk_payload.values() if isinstance(v, tuple) for a in v]
+    assert all(a.dtype == np.uint32 for a in arrays)
+    jpool = jcheckpoint.load_pool(port_path)
+    assert jpool.tree.root_int() == pool.tree.root_int()
+    assert np.array_equal(np.asarray(jpool.pk._fixed.g1.rows), tables["g1_rows"])
+    jpool.vk = jgroth16.VerifyingKey(**dataclasses.asdict(pool.vk))
+    jcheckpoint.save_pool(jpool, jax_path)
+    bad_path = str(tmp_path / "bad.db")
+    with store.open_store(bad_path) as st:
+        st.put(b"pool/host", pickle.dumps({"depth": DEPTH, "vk": jgroth16.Proof(None, None, None)}))
+        st.commit()
+    rng = random.Random(13)
+    sets = [[ocurve.G1.mul(ocurve.G1_GEN, rng.randrange(1, FR.p)) for _ in range(2)]
+            for _ in range(2)]
+    scalars = [[rng.randrange(FR.p) for _ in range(2)] for _ in range(3)]
+    slots = (0, 1, 1)
+    table_path = str(tmp_path / "tables.db")
+    with jstore.open_store(table_path) as st:
+        assert jcheckpoint.save_prover_tables(st, reference_tables(sets))
+        st.commit()
+
+    for name in [m for m in sys.modules if m == "owshen_tpu" or m.startswith("owshen_tpu.")]:
+        monkeypatch.setitem(sys.modules, name, None)
+    got = checkpoint.load_pool(jax_path, device="cpu")
+    assert type(got.vk) is groth16.VerifyingKey
+    assert_same_pool(got, pool, g1, b2)
+    with pytest.raises(pickle.UnpicklingError, match=r"owshen_tpu\.groth16\.groth16\.Proof"):
+        checkpoint.load_pool(bad_path, device="cpu")
+    with store.open_store(table_path) as st:
+        assert checkpoint.load_prover_tables(st, got.pk)
+    sums = got.pk._fixed.g1.mul_multi(torch.stack([FR.encode(k, mont=False) for k in scalars]),
+                                      slots)
+    assert bn254.g1_decode(sums) == [ocurve.G1.msm(sets[t], k) for t, k in zip(slots, scalars)]

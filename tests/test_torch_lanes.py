@@ -15,22 +15,37 @@ import pytest
 import torch
 
 import chip_smoke
+import host_msm
 from lazy_words import LazyField, value, words
 from owshen_tpu import config as jax_config
+from owshen_tpu.circuits import gadgets as jax_gadgets
 from owshen_tpu.groth16 import groth16 as jax_groth16
+from owshen_tpu.ops import msm_fixed as jax_msm_fixed
 from owshen_tpu.oracle import curve as jax_ocurve
 from owshen_tpu.oracle import hash as jax_ohash
+from owshen_tpu.parallel import merkle_dist as jax_merkle_dist
+from owshen_tpu.parallel import mesh as jax_mesh
+from owshen_tpu.parallel import msm_dist as jax_msm_dist
+from owshen_tpu.parallel import ntt_dist as jax_ntt_dist
 from owshen_tpu.protocol import pool as jax_pool
+from owshen_tpu.runtime import dryrun as jax_dryrun
 from owshen_tpu.runtime import metrics as jax_metrics
 from owshen_tpu_torch import config
+from owshen_tpu_torch.circuits import gadgets
 from owshen_tpu_torch.curves import bn254
+from owshen_tpu_torch.fields.field import FR as FRF
 from owshen_tpu_torch.groth16 import groth16
+from owshen_tpu_torch.groth16.r1cs import Builder
 from owshen_tpu_torch.kernels import build, g1
+from owshen_tpu_torch.ops import msm as pmsm
+from owshen_tpu_torch.ops import msm_fixed
 from owshen_tpu_torch.oracle import curve as ocurve
 from owshen_tpu_torch.oracle import hash as ohash
 from owshen_tpu_torch.oracle.field import P_FQ, P_FR
+from owshen_tpu_torch.parallel import merkle_dist, msm_dist, ntt_dist
+from owshen_tpu_torch.parallel import mesh as pmesh
 from owshen_tpu_torch.protocol import pool
-from owshen_tpu_torch.runtime import metrics
+from owshen_tpu_torch.runtime import dryrun, metrics
 
 FQ = LazyField(P_FQ)
 FR = LazyField(P_FR)
@@ -40,9 +55,26 @@ def _params(fn):
     return [(p.name, p.default, p.kind) for p in inspect.signature(fn).parameters.values()]
 
 
+def _same_params(port, ref, extras=()):
+    """port takes ref's parameters in its order, with its plain defaults
+    (ints, strings, None; a field default is compared by name), then
+    `extras`."""
+    norm = lambda d: d if d is None or isinstance(d, (int, str)) else getattr(d, "name", "?")  # noqa: E731
+    got = [(n, norm(d), k) for n, d, k in _params(port)]
+    want = [(n, norm(d), k) for n, d, k in _params(ref)]
+    assert got[:len(want)] == want, port
+    assert [n for n, _, _ in got[len(want):]] == list(extras), port
+
+
 def test_prover_signatures_match_reference():
     """`prove` and `prove_withdraw` take the reference's parameters in its
-    order, with its defaults, then the port's keyword-only extras."""
+    order, with its defaults, then the port's keyword-only extras; so do
+    the fixed-table MSM (`msm_fixed`, the folds, `FixedMsm.from_table`),
+    `merkle_path_gadget`, the mesh layer and the dry run, and bn254 has
+    `g1_decode` / `g2_decode`.  A host-built table restored by
+    `FixedMsm.from_table` gives the oracle's MSM through `msm_fixed` and
+    `.mul`, and a MiMC authentication path built with
+    `merkle_path_gadget(hash2=...)` gives the oracle's root."""
     for port, ref, extras in (
             (groth16.prove, jax_groth16.prove, ["device"]),
             (pool.PrivacyPool.prove_withdraw, jax_pool.PrivacyPool.prove_withdraw, ["seed"])):
@@ -50,22 +82,71 @@ def test_prover_signatures_match_reference():
         assert got[:len(want)] == want
         assert [(name, kind) for name, _, kind in got[len(want):]] == \
             [(name, inspect.Parameter.KEYWORD_ONLY) for name in extras]
+    pairs = [(getattr(msm_fixed, f), getattr(jax_msm_fixed, f), ())
+             for f in ("msm_fixed", "fold_sum", "fold_sum_batched", "msm_fixed_multi")]
+    pairs += [(msm_fixed.FixedMsm.from_table, jax_msm_fixed.FixedMsm.from_table, ()),
+              (gadgets.merkle_path_gadget, jax_gadgets.merkle_path_gadget, ()),
+              (pmesh.make_mesh, jax_mesh.make_mesh, ("devices",)),
+              (dryrun.run, jax_dryrun.run, ("devices",)),
+              (dryrun.run_subprocess, jax_dryrun.run_subprocess, ())]
+    for module, ref in ((pmesh, jax_mesh), (ntt_dist, jax_ntt_dist), (msm_dist, jax_msm_dist),
+                        (merkle_dist, jax_merkle_dist)):
+        names = [n for n, v in vars(ref).items() if not n.startswith("_")
+                 and (inspect.isfunction(v) or inspect.isclass(v)) and v.__module__ == ref.__name__]
+        assert names and all(hasattr(module, n) for n in names), module
+        pairs += [(getattr(module, n), getattr(ref, n), ()) for n in names
+                  if (module, n) != (pmesh, "make_mesh")]
+    for cls in (ntt_dist.DistNtt, merkle_dist.DistSparseMerkleTree):
+        ref = getattr(jax_ntt_dist if cls is ntt_dist.DistNtt else jax_merkle_dist, cls.__name__)
+        pairs += [(getattr(cls, n), getattr(ref, n), ()) for n in vars(ref)
+                  if not n.startswith("_") and callable(getattr(ref, n))]
+    for port, ref, extras in pairs:
+        _same_params(port, ref, extras)
+    assert bn254.g1_decode is bn254.g1_decode_many and bn254.g2_decode is bn254.g2_decode_many
+
+    rng = random.Random(0x7AB)
+    pts = [jax_ocurve.G1.mul(jax_ocurve.G1_GEN, rng.randrange(1, 1 << 60)) for _ in range(2)]
+    rows, widths, shapes = host_msm.host_table("g1", pts)
+    table = tuple(a.reshape((64, 9, 2) + tuple(sh))
+                  for a, sh in zip(pmsm._unflat_rows(rows.reshape(-1, 48), widths, shapes),
+                                   shapes))
+    fx = msm_fixed.FixedMsm.from_table(bn254.G1, table)
+    assert torch.equal(fx.rows, rows) and all(map(torch.equal, fx.table, table))
+    scalars = [P_FR - 1, rng.randrange(P_FR)]
+    want = jax_ocurve.G1.msm(pts, scalars)
+    sc = FRF.encode(scalars, mont=False)
+    assert bn254.g1_decode_host(tuple(a[None] for a in msm_fixed.msm_fixed(
+        bn254.G1, table, sc))) == want
+    assert bn254.g1_decode_host(tuple(a[None] for a in fx.mul(sc[:1]))) == \
+        jax_ocurve.G1.mul(pts[0], scalars[0])
+
+    b = Builder()
+    leaf, sibs = rng.randrange(P_FR), [rng.randrange(P_FR) for _ in range(2)]
+    bits = [1, 0]
+    root = gadgets.merkle_path_gadget(
+        b, b.priv(leaf), [b.priv(x) for x in bits], [b.priv(x) for x in sibs],
+        hash2=lambda bb, l, r: gadgets.mimc7_multi_gadget(bb, [l, r]))
+    node = leaf
+    for bit, sib in zip(bits, sibs):
+        node = jax_ohash.mimc7_multi([sib, node] if bit else [node, sib])
+    assert b.check() and root.eval(b.witness()) == node
 
 
 def test_prover_engine_errors_come_before_any_work(monkeypatch):
-    """An unknown engine is a ValueError with the reference's message and a
-    mesh a NotImplementedError naming its ROADMAP item, before any work
-    (None stands in for the key and the builder).  "lane" and "sorted" are
-    served, and "fixed" with tables over the budget resolves to "sorted",
-    where the reference's prover goes too."""
+    """An unknown engine is a ValueError with the reference's message before
+    any work, with or without a mesh (None stands in for the key and the
+    builder).  "lane" and "sorted" are served, "fixed" with tables over the
+    budget resolves to "sorted", where the reference's prover goes too,
+    and a mesh proves through msm_dist without looking at the tables."""
     assert config.settings().prover_engine == jax_config.settings().prover_engine == "fixed"
     message = r"unknown prover engine 'bogus': expected fixed\|lane\|sorted"
     with pytest.raises(ValueError, match=message):
         groth16.prove(None, None, engine="bogus")
     for engine in ("lane", "sorted"):
         assert groth16._resolve_engine(None, None, engine) == engine
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        groth16.prove(None, None, mesh=object())
+    with pytest.raises(ValueError, match=message):
+        groth16.prove(None, None, mesh=object(), engine="bogus")
+    assert groth16._resolve_engine(None, object(), "fixed") == "fixed"
     # the engine from OWSHEN_PROVER_ENGINE, and tables over the budget
     monkeypatch.setenv("OWSHEN_PROVER_ENGINE", "bogus")
     monkeypatch.setenv("OWSHEN_FIXED_TABLE_MAX_GB", "1e-6")

@@ -1,7 +1,7 @@
 """The slice end to end, port vs reference, at depth 2 on the CPU.
 
 1. The port's setup of withdraw_circuit(2) equals the JAX package's keys
-   (the shared depth-2 keys of tests/conftest.py, same seed) after affine
+   (the seed of tests/conftest.py's shared depth-2 keys) after affine
    decoding.
 2. The JAX pool and the port's pool take the depth-2 statement of
    chip_smoke.py and agree on every root.
@@ -13,21 +13,28 @@
    public input; the port's pool issues a voucher, redeems it once and
    rejects a replay.
 
-Two shortcuts keep this file to minutes on the CPU; neither touches what
-is compared.  The JAX proof runs the JAX prover's own steps (`_rand_stream`,
-`_prove_core`) with its MSMs taken on the host (Pippenger over the JAX
-oracle), because the fixed-table engine spends about ten minutes of XLA:CPU
-at depth 2, its nine assembly adds (`_combine_jit`) on the host too, whose
-trace and compile on XLA:CPU take ~20 s, and its h scalars from the JAX
-package's NTT oracle (tests/host_msm.py `host_h`, the values `_h_pipeline`
-gives), whose XLA:CPU trace and compile take half a minute or more; the JAX
-package's own prover tests run both.  The port proves through its fixed-table engine over
-tables computed on the host oracle, because building 64·9·2048-row tables on
-the plain int64 twins takes about four minutes; the rows `build_table`
-gives are held against the oracle in tests/test_torch_ntt_msm.py, and a
-wrong host row would show here as a proof that differs.  The host rows
-come from tests/host_msm.py: affine sums on bare ints with one inversion
-per batch, each window's rows encoded in one pass.
+Three shortcuts keep this file to about a minute and a half on one core;
+none touches what is compared.  The JAX setup runs with its fixed-base
+multiplication taken by the host (tests/host_msm.py `fixed_base`, as
+tests/test_torch_deposit.py does), which records each point set's
+exponents: its XLA:CPU trace of the fixed-base jits took ~75 s, and the
+port's own setup still runs its fixed-base kernels' twins here.  The JAX
+proof runs the JAX prover's own steps (`_rand_stream`, `_prove_core`)
+with each MSM taken from those exponents, Σ sᵢ·eᵢ mod r times the
+generator, the value a Pippenger over the points gives (the fixed-table
+engine spends about ten minutes of XLA:CPU at depth 2), its nine assembly
+adds (`_combine_jit`) on the host too, whose trace and compile on XLA:CPU
+take ~20 s, and its h scalars from the JAX package's NTT oracle
+(tests/host_msm.py `host_h`, the values `_h_pipeline` gives), whose
+XLA:CPU trace and compile take half a minute or more; the JAX package's
+own prover tests run all of these.  The port proves through its
+fixed-table engine over tables computed on the host oracle, because
+building 64·9·2048-row tables on the plain int64 twins takes about four
+minutes; the rows `build_table` gives are held against the oracle in
+tests/test_torch_ntt_msm.py, and a wrong host row would show here as a
+proof that differs.  The host rows come from tests/host_msm.py: affine
+sums on bare ints with one inversion per batch, each window's rows
+encoded in one pass.
 
 The file keeps six test items: pytest-xdist's loadfile mode queues files by
 item count, and at six or fewer this file queues after the JAX package's
@@ -39,13 +46,14 @@ import pytest
 import torch
 
 import chip_smoke
-from host_msm import host_combine, host_h, host_table, oracle_affine, pippenger
+from host_msm import fixed_base, host_combine, host_h, host_table
 from owshen_tpu.circuits import pool as jcircuits
 from owshen_tpu.fields.field import FR as JFR
 from owshen_tpu.fields.field import array_to_ints, ints_to_array
 from owshen_tpu.curves import bn254 as jbn
 from owshen_tpu.groth16 import groth16 as jg
 from owshen_tpu.oracle import curve as ocurve
+from owshen_tpu.oracle.field import P_FR
 from owshen_tpu.protocol.pool import PrivacyPool as JPool
 from owshen_tpu_torch import convert
 from owshen_tpu_torch.circuits import pool as circuits
@@ -59,6 +67,10 @@ torch.set_num_threads(1)
 NOTE = chip_smoke.DEPTH2_NOTE
 RECIPIENT = chip_smoke.DEPTH2_RECIPIENT
 G1_SETS = ("a_g1", "b_g1", "k_g1", "h_g1")   # the port's table order
+# the order of the JAX setup's fixed-base calls (owshen_tpu/groth16/groth16.py setup)
+JAX_CALLS = (("g1", "a_g1"), ("g1", "b_g1"), ("g2", "b_g2"), ("g1", "k_g1"), ("g1", "h_g1"),
+             ("g1", "alpha_g1"), ("g1", "beta_g1"), ("g1", "delta_g1"), ("g2", "beta_g2"),
+             ("g2", "delta_g2"))
 
 
 def limbs(pt):
@@ -83,11 +95,40 @@ def port_keys():
 
 
 @pytest.fixture(scope="module")
-def jax_side(_small_pool_keys):
+def jax_keys():
+    """The JAX package's setup of withdraw_circuit(2) with the conftest's
+    seed, its fixed-base multiplication taken by the host: the keys, and
+    each point set's exponents and affine points by name."""
+    calls = []
+
+    def batch(group):
+        def mul(exponents, c=8):
+            pts = fixed_base(group, exponents)
+            calls.append(([e % P_FR for e in exponents], pts))
+            return (jbn.g1_encode if group == "g1" else jbn.g2_encode)(pts)
+        return mul
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jg, "_g1_batch_device", batch("g1"))
+        mp.setattr(jg, "_g2_batch_device", batch("g2"))
+        keys = jg.setup(jcircuits.withdraw_circuit(2), seed=chip_smoke.DEPTH2_SETUP_SEED)
+    named = {name: call for (_, name), call in zip(JAX_CALLS, calls)}
+    return {"keys": keys, "exps": {k: e for k, (e, _) in named.items()},
+            "points": {k: p for k, (_, p) in named.items()}}
+
+
+def dlog_msm(group, exps, scalars):
+    """Σ scalars[i]·(exps[i]·gen) as (Σ scalars[i]·exps[i] mod r)·gen."""
+    curve, gen = (ocurve.G1, ocurve.G1_GEN) if group == "g1" else (ocurve.G2, ocurve.G2_GEN)
+    return curve.mul(gen, sum(s * e for s, e in zip(scalars, exps)) % P_FR)
+
+
+@pytest.fixture(scope="module")
+def jax_side(jax_keys):
     """The JAX pool after the depth-2 deposits, and the JAX proof of the
     note: jg.prove's steps with the MSMs on the host."""
-    jpk, jvk = _small_pool_keys
-    pool = JPool(depth=2, keys=_small_pool_keys)
+    jpk, jvk = jax_keys["keys"]
+    pool = JPool(depth=2, keys=jax_keys["keys"])
     coms, txs, amounts = chip_smoke.depth2_deposits(jcircuits.commitment_of)
     pool.deposit(coms, txs, amounts)
     sibs_dev, _ = pool.tree.path([1])
@@ -103,23 +144,23 @@ def jax_side(_small_pool_keys):
     r, s = next(rs), next(rs)
     n = jpk.n_domain
     h_sc = ints_to_array(host_h(builder, jg._domain(n.bit_length() - 1))[: n - 1])
-    points = {name: oracle_affine(getattr(jpk, name), "g1") for name in G1_SETS}
-    points["b_g2"] = oracle_affine(jpk.b_g2, "g2")
+    exps = jax_keys["exps"]
     by_key = {"a": "a_g1", "b1": "b_g1", "k": "k_g1", "h": "h_g1"}
 
     def mg1(which, sc):
-        pt = pippenger(ocurve.G1, points[by_key[which]], array_to_ints(np.asarray(sc)))
+        pt = dlog_msm("g1", exps[by_key[which]], array_to_ints(np.asarray(sc)))
         return tuple(a[0] for a in jbn.g1_encode([pt]))
 
     def mg2(sc):
-        pt = pippenger(ocurve.G2, points["b_g2"], array_to_ints(np.asarray(sc)))
+        pt = dlog_msm("g2", exps["b_g2"], array_to_ints(np.asarray(sc)))
         return tuple(a[0] for a in jbn.g2_encode([pt]))
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jg, "_combine_jit", host_combine)
         proof = jg._prove_core(jpk, wit, r, s, h_sc, mg1, mg2)
     return {"pk": jpk, "vk": jvk, "pool": pool, "proof": proof, "root": root,
-            "points": points, "nullifier": jcircuits.nullifier_of(NOTE["secret"], 1)}
+            "points": jax_keys["points"],
+            "nullifier": jcircuits.nullifier_of(NOTE["secret"], 1)}
 
 
 @pytest.fixture(scope="module")
@@ -159,8 +200,8 @@ def port_side(jax_side):
 # tests
 # ---------------------------------------------------------------------------
 
-def test_setup_matches_jax_keys(_small_pool_keys, port_keys):
-    jpk, jvk = _small_pool_keys
+def test_setup_matches_jax_keys(jax_keys, port_keys):
+    jpk, jvk = jax_keys["keys"]
     pk, vk = port_keys
     assert (pk.n_domain, pk.n_pub) == (jpk.n_domain, jpk.n_pub)
     for name in convert.POINT_FIELDS:
