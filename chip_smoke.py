@@ -107,7 +107,18 @@
    before and read after (K1–K6 and the G2 kernels must be > 0), and the
    device-busy share of the d = 2 prove and of DistNtt, msm_dist and the
    MiMC root at d = 4.
-11. Prints the `kernels` JSON line, then the result line.
+11. The rest of the fields and curves surface at the widths the main path
+   gives it, each op a stage of its own (seconds, launches by op): every
+   Fq2 op at 2^18 elements (the prover's G2 fold's top level); G2
+   to_affine, is_identity and eq over 8192 points (the fixed-table build's
+   width) with identities and scaled copies (λX, λY, λZ); G1
+   on_curve_affine over the 2^22 affine points of phase 7 with a seeded
+   eighth tampered (y + 1), false on exactly those rows; batch_inv over
+   2^20 Fr with seeded zeros (whole against Field.inv on 4096 rows); and
+   NttDomain(13, device).coset_pows against the prover's coset table.
+   Each result is held on 64 seeded rows against the host oracle.  Its
+   K1 launches are held against the plain twins with the mesh stages'.
+12. Prints the `kernels` JSON line, then the result line.
 
 Exits non-zero, printing no result, when there is no CUDA device, when the
 package is missing, or when any check fails.
@@ -1856,7 +1867,8 @@ def as_rows(torch, x, tail: int):
                                         for t in ts]))
 
 
-def mesh_path_checks(torch, stage: str, kept: dict, widths: dict, held: set) -> dict:
+def mesh_path_checks(torch, stage: str, kept: dict, widths: dict, held: set,
+                     phase: str = "mesh") -> dict:
     """Every (kernel, width) that a mesh stage launched and no earlier stage
     held, held against its plain version on the operands of its first
     launch at that width in the stage (kernels.capture_operands: the shard
@@ -1872,7 +1884,7 @@ def mesh_path_checks(torch, stage: str, kept: dict, widths: dict, held: set) -> 
 
     launched = {(k, int(w)) for k, ws in widths.items() for w in ws}
     if launched != set(kept):
-        fail(f"mesh {stage}: launched widths {sorted(launched - set(kept))} not held against "
+        fail(f"{phase} {stage}: launched widths {sorted(launched - set(kept))} not held against "
              f"their plain versions (kept but not counted: {sorted(set(kept) - launched)})")
     dev, errs, groups = torch.device("cuda", torch.cuda.current_device()), {}, {}
     for (name, w), args in sorted(kept.items()):
@@ -1903,12 +1915,12 @@ def mesh_path_checks(torch, stage: str, kept: dict, widths: dict, held: set) -> 
                                      tuple(w[i] for w in want))
         torch.cuda.synchronize()
         CHECK_S[f"{' '.join(key)} plain, {len(items)} widths"] = time.time() - t
-    print(f"mesh {stage}: {len(errs)} (kernel, width) pairs against their plain versions on the "
-          f"stage's operands ({len(kept) - len(errs)} held by an earlier stage), max |diff|: "
+    print(f"{phase} {stage}: {len(errs)} (kernel, width) pairs against their plain versions on "
+          f"the stage's operands ({len(kept) - len(errs)} held by an earlier stage), max |diff|: "
           + json.dumps(dict(sorted(errs.items()))), flush=True)
     bad = sorted(case for case, err in errs.items() if err != 0)
     if bad:
-        fail(f"mesh {stage}: kernel disagrees with its plain version at {bad}")
+        fail(f"{phase} {stage}: kernel disagrees with its plain version at {bad}")
     return errs
 
 
@@ -1919,8 +1931,11 @@ def mesh_stage(torch, out: dict, name: str, kind: str, fn):
     launches go in out, the kept operands (moved to the host, so that they
     count in no later phase's peak memory) and widths in out["kept"] for
     `mesh_checks`.  Fails if a kernel that a stage of this kind runs was
-    launched no time."""
+    launched no time.  The surface phase (phase 11) runs its stages here
+    too, with its own kinds (`SURFACE_STAGE_KERNELS`) and label."""
     from owshen_tpu_torch import kernels
+
+    phase = out.get("phase", "mesh")
 
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -1932,10 +1947,11 @@ def mesh_stage(torch, out: dict, name: str, kind: str, fn):
     counts, widths = kernels.launch_counts(), kernels.launch_widths()
     out["stages_s"][name] = secs
     out["launches"][name] = nonzero(counts)
-    print(f"mesh {name}: {secs:.3f} s, launches {json.dumps(out['launches'][name])}", flush=True)
-    for k in MESH_STAGE_KERNELS[kind]:
+    print(f"{phase} {name}: {secs:.3f} s, launches {json.dumps(out['launches'][name])}",
+          flush=True)
+    for k in {**MESH_STAGE_KERNELS, **SURFACE_STAGE_KERNELS}[kind]:
         if counts[k] <= 0:
-            fail(f"mesh {name}: kernel {k} was not launched")
+            fail(f"{phase} {name}: kernel {k} was not launched")
     cpu = torch.device("cpu")
     out["kept"][name] = ({k: copies(torch, args, cpu) for k, args in kept.items()}, widths)
     return res
@@ -1951,10 +1967,11 @@ def mesh_checks(torch, *outs) -> None:
     t, held = time.time(), set()
     for out in outs:
         for name, (kept, widths) in out.pop("kept").items():
-            out["path_checks"][name] = mesh_path_checks(torch, name, kept, widths, held)
+            out["path_checks"][name] = mesh_path_checks(torch, name, kept, widths, held,
+                                                        out.get("phase", "mesh"))
     torch.cuda.synchronize()
     outs[0]["checks_s"] = time.time() - t
-    print(f"mesh twin checks: {outs[0]['checks_s']:.1f} s", flush=True)
+    print(f"{outs[0].get('phase', 'mesh')} twin checks: {outs[0]['checks_s']:.1f} s", flush=True)
 
 
 def mesh_busy(torch, out: dict, name: str, fn) -> None:
@@ -2071,6 +2088,180 @@ def mesh_phase(torch, dev, msm_affine_want, mimc_leaves, mimc_root, entries, d16
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the rest of the fields and curves surface, at the main path's widths
+# ---------------------------------------------------------------------------
+
+SURFACE_FQ2_N = 1 << 18     # the prover's G2 fold's top level
+SURFACE_G2_N = 8192         # the fixed-table build's width
+SURFACE_INV_N = 1 << 20
+SURFACE_INV_SLICE = 4096    # rows of batch_inv held whole against Field.inv
+SURFACE_CHECKED = 64        # seeded rows held against the host oracle
+SURFACE_COSET_LOGN = 13     # the depth-16 withdraw circuit's domain
+# the K1 wrappers each stage must launch
+SURFACE_STAGE_KERNELS = {
+    "add": ("mod_add",), "sub": ("mod_sub",), "neg": ("mod_sub",),
+    "mul": ("mont_mul", "mod_add", "mod_sub"), "sqr": ("mont_mul", "mod_add", "mod_sub"),
+    "mul_const": ("mont_mul", "mod_add", "mod_sub"), "mul_base": ("mont_mul",),
+    "inv": ("mont_mul", "mod_add", "mod_sub"), "to_affine": ("mont_mul", "mod_add", "mod_sub"),
+    "eq": ("mont_mul",), "on_curve": ("mont_mul", "mod_add"), "batch_inv": ("mont_mul",),
+    "tables": ("mont_mul",),
+}
+
+
+def seeded_rows(n: int, seed: int) -> list[int]:
+    """SURFACE_CHECKED row indices below n: the first eight and seeded others."""
+    rng = random.Random(seed)
+    return sorted(set(range(8)) | set(rng.sample(range(8, n), SURFACE_CHECKED - 8)))
+
+
+def seeded_mask(torch, n: int, seed: int, one_in: int, dev):
+    """bool[n], about one row in `one_in` true (seeded)."""
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randint(0, one_in, (n,), generator=gen) == 0).to(dev)
+
+
+def surface_phase(torch, dev, smi: str) -> dict:
+    """Every Fq2 op at 2^18 elements; G2 to_affine, is_identity and eq over
+    8192 points (identities and scaled copies (λX, λY, λZ) among them); G1
+    on_curve_affine over the 2^22 affine points of the MSM phase with a
+    seeded eighth tampered (y + 1); batch_inv over 2^20 Fr with seeded
+    zeros; NttDomain(13, device).coset_pows against the prover's table.
+    Each op is a stage of its own (launch counts zeroed before, read
+    after, every K1 operand kept at each width for `mesh_checks`); each
+    result is held on SURFACE_CHECKED seeded rows against the host oracle,
+    batch_inv whole against Field.inv on a SURFACE_INV_SLICE-row slice."""
+    from owshen_tpu_torch.curves import bn254
+    from owshen_tpu_torch.fields.field import FQ, FR
+    from owshen_tpu_torch.fields.fq2 import FQ2
+    from owshen_tpu_torch.groth16 import groth16
+    from owshen_tpu_torch.ops.ntt import NttDomain
+    from owshen_tpu_torch.oracle import curve as ocurve
+
+    out = {**mesh_out(), "phase": "surface"}
+    f2 = ocurve.FQ2I
+    q = FQ.p
+
+    def stage(name, kind, fn):
+        return mesh_stage(torch, out, name, kind, fn)
+
+    def host_fq2(t, rows):
+        return FQ2.decode(t[rows])
+
+    # --- Fq2 at 2^18 -----------------------------------------------------
+    n = SURFACE_FQ2_N
+    gen = torch.Generator().manual_seed(0x5F2)
+    a = rand_field(torch, gen, q, 2 * n, dev).view(n, 2, 16)
+    b = rand_field(torch, gen, q, 2 * n, dev).view(n, 2, 16).flip(0).contiguous()
+    a[2] = 0                                     # inv(0) = 0
+    base = rand_field(torch, gen, q, n, dev)
+    rng = random.Random(0x5F2)
+    const = (rng.randrange(q), rng.randrange(q))
+    rows = seeded_rows(n, 0x5F2)
+    ha, hb = host_fq2(a, rows), host_fq2(b, rows)
+    hbase = FQ.decode(base[rows])
+    fq2_ops = {
+        "add": (lambda: FQ2.add(a, b), lambda x, y, _: f2.add(x, y)),
+        "sub": (lambda: FQ2.sub(a, b), lambda x, y, _: f2.sub(x, y)),
+        "neg": (lambda: FQ2.neg(a), lambda x, y, _: f2.neg(x)),
+        "mul": (lambda: FQ2.mul(a, b), lambda x, y, _: f2.mul(x, y)),
+        "sqr": (lambda: FQ2.sqr(a), lambda x, y, _: f2.mul(x, x)),
+        "mul_const": (lambda: FQ2.mul_const(a, const), lambda x, y, _: f2.mul(x, const)),
+        "mul_base": (lambda: FQ2.mul_base(a, base), lambda x, y, c: f2.mul(x, (c, 0))),
+        "inv": (lambda: FQ2.inv(a), lambda x, y, _: (0, 0) if x == (0, 0) else f2.inv(x)),
+    }
+    for op, (run, want) in fq2_ops.items():
+        got = host_fq2(stage(f"Fq2 {op} {n}", op, run), rows)
+        if got != [want(x, y, c) for x, y, c in zip(ha, hb, hbase)]:
+            fail(f"surface: Fq2 {op} over {n} elements differs from the host oracle")
+    del a, b, base
+
+    # --- G2 over 8192 points -----------------------------------------------
+    n = SURFACE_G2_N
+    pts, _, _ = msm_inputs(torch, dev, "g2", n, 0x6A2)          # k·G2, Z = 1, tiled
+    host = [ocurve.G2_GEN]
+    for _ in range(MSM_BASES - 1):
+        host.append(ocurve.G2.add(host[-1], ocurve.G2_GEN))
+    gen = torch.Generator().manual_seed(0x6A2)
+    lam, mu = (FQ.encode([int(v) for v in torch.randint(1, 1 << 62, (n,), generator=gen)],
+                         device=dev) for _ in range(2))
+    id_p, id_q = (seeded_mask(torch, n, s, 16, dev) for s in (0x6A3, 0x6A4))
+    differ = seeded_mask(torch, n, 0x6A5, 8, dev)
+    zero = torch.zeros_like(pts[0])
+
+    def scaled(coords, by, ident):
+        """(λX, λY, λZ), with (0 : λY : 0) on the identity rows"""
+        x, y, z = (FQ2.mul_base(c, by) for c in coords)
+        return (FQ2.select(ident, zero, x), y, FQ2.select(ident, zero, z))
+
+    p = scaled(pts, lam, id_p)
+    other = tuple(c.roll(1, 0) for c in pts)                     # (k − 1)·G2 beside k·G2
+    q2 = scaled(tuple(FQ2.select(differ, o, c) for o, c in zip(other, pts)), mu, id_q)
+    ident = bn254.G2.is_identity(p)             # a compare: no launch
+    if not torch.equal(ident, id_p):
+        fail("surface: G2 is_identity differs from the identity rows")
+    eq = stage(f"G2 eq {n}", "eq", lambda: bn254.G2.eq(p, q2))
+    if not torch.equal(eq, (id_p & id_q) | (~id_p & ~id_q & ~differ)):
+        fail("surface: G2 eq differs from the scaled copies' pattern")
+    ax, ay = stage(f"G2 to_affine {n}", "to_affine", lambda: bn254.G2.to_affine(p))
+    keep = ~id_p[:, None, None]
+    if not (torch.equal(ax, torch.where(keep, pts[0], zero))
+            and torch.equal(ay, torch.where(keep, pts[1], zero))):
+        fail("surface: G2 to_affine differs from the points' affine coordinates")
+    rows = seeded_rows(n, 0x6A2)
+    got = list(zip(host_fq2(ax, rows), host_fq2(ay, rows)))
+    idh = id_p.cpu()
+    if got != [((0, 0), (0, 0)) if idh[i] else host[i % MSM_BASES] for i in rows]:
+        fail("surface: G2 to_affine differs from the host oracle")
+    del p, q2, other, pts, zero, ax, ay
+
+    # --- G1 on_curve_affine over the 2^22 points of the MSM phase ------------
+    n = 1 << MSM_LOG_N
+    pts, _, _ = msm_inputs(torch, dev, "g1", n, MSM_LOG_N)
+    bad = seeded_mask(torch, n, 0x0C1, 8, dev)
+    x = pts[0]
+    y = torch.where(bad[:, None], FQ.add(pts[1], FQ.one_like(pts[1])), pts[1])
+    del pts
+    on = stage(f"G1 on_curve_affine {n}", "on_curve", lambda: bn254.G1.on_curve_affine(x, y))
+    if not torch.equal(on, ~bad):
+        fail("surface: G1 on_curve_affine is not false on exactly the tampered rows")
+    rows = seeded_rows(n, 0x0C1)
+    hx, hy = FQ.decode(x[rows]), FQ.decode(y[rows])
+    if on[rows].tolist() != [ocurve.G1.on_curve((u, v)) for u, v in zip(hx, hy)]:
+        fail("surface: G1 on_curve_affine differs from the host oracle")
+    out["on_curve_false"] = int((~on).sum())
+    del x, y, on, bad
+
+    # --- batch_inv over 2^20 Fr --------------------------------------------
+    n = SURFACE_INV_N
+    x = rand_field(torch, torch.Generator().manual_seed(0x1B7), FR.p, n, dev)
+    zeros = seeded_mask(torch, n, 0x1B8, 16, dev)
+    x[zeros] = 0
+    inv = stage(f"batch_inv {n}", "batch_inv", lambda: FR.batch_inv(x))
+    rows = seeded_rows(n, 0x1B7)
+    if FR.decode(inv[rows]) != [pow(v, -1, FR.p) if v else 0 for v in FR.decode(x[rows])]:
+        fail("surface: batch_inv differs from the host oracle")
+    whole = FR.inv(x[:SURFACE_INV_SLICE])
+    if not torch.equal(inv[:SURFACE_INV_SLICE], whole):
+        fail(f"surface: batch_inv differs from Field.inv on {SURFACE_INV_SLICE} rows")
+    if not bool((inv[zeros] == 0).all()):
+        fail("surface: batch_inv of a zero is not zero")
+    del x, inv, whole
+
+    # --- the NTT domain's tables ---------------------------------------------
+    dom = NttDomain(SURFACE_COSET_LOGN, device=dev)
+    coset = stage(f"NttDomain({SURFACE_COSET_LOGN}).coset_pows", "tables", lambda: dom.coset_pows)
+    if not torch.equal(coset, groth16._domain(SURFACE_COSET_LOGN)._table("coset", dev)):
+        fail("surface: NttDomain.coset_pows differs from the prover's coset table")
+    hc = FR.decode(coset[seeded_rows(1 << SURFACE_COSET_LOGN, 0x7AB)])
+    if hc != [pow(dom.coset_gen, i, FR.p) for i in seeded_rows(1 << SURFACE_COSET_LOGN, 0x7AB)]:
+        fail("surface: NttDomain.coset_pows differs from the host powers")
+
+    print(f"surface on {smi}: every result equal to the host oracle on its seeded rows; seconds "
+          + json.dumps({k: round(v, 4) for k, v in out["stages_s"].items()}), flush=True)
+    return out
+
+
 def main() -> int:
     # keep CUPTI set up between profiler sessions (Kineto tears it down
     # after each by default): the timeline checks were verified this way
@@ -2110,7 +2301,15 @@ def main() -> int:
     mimcp = mimc_phase(torch, dev)
     meshp = mesh_phase(torch, dev, msmp.pop("affine"), mimcp.pop("leaves"), mimcp.pop("root"),
                        entries, trip.pop("root"), smi)
+    t = time.time()
+    surface = surface_phase(torch, dev, smi)
+    surface["s"] = time.time() - t
     mesh_checks(torch, mesh_prove, meshp)
+    mesh_checks(torch, surface)         # its own (kernel, width) pairs, on its operands
+    surface_launches = {k: sum(c.get(k, 0) for c in surface["launches"].values())
+                        for k in KERNELS}
+    print(f"surface: {surface['s']:.1f} s before its twin checks; launches by op "
+          + json.dumps(surface["launches"]) + f" on {smi}", flush=True)
     mesh_by_stage = {**mesh_prove["launches"], **meshp["launches"]}
     mesh_launches = {k: sum(c.get(k, 0) for c in mesh_by_stage.values()) for k in KERNELS}
     for name in MESH_KERNELS:
@@ -2152,11 +2351,13 @@ def main() -> int:
         "vouchers": {k: v for k, v in vouchers.items() if k != "launches"},
         "mesh": {**{k: {**mesh_prove[k], **meshp[k]} for k in mesh_out() if k != "kept"},
                  "checks_s": mesh_prove["checks_s"], "checks_s_by_pair": CHECK_S},
+        "surface": {k: surface[k] for k in ("s", "stages_s", "launches", "path_checks",
+                                            "checks_s", "on_curve_false")},
         "profiler_spin_loss": SPIN_LOSS,
         "launches_by_phase": {"depth16": trip["launches"], "deposit": deposit["launches"],
                               "msm_2_22": msmp["launches"], "ntt_2_20": nttp["launches"],
                               "mimc_2_20": mimcp["launches"], "vouchers": vouchers["launches"],
-                              "mesh": mesh_launches},
+                              "mesh": mesh_launches, "surface": surface_launches},
         "card": smi, "total_s": time.time() - t_start}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

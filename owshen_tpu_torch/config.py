@@ -50,7 +50,7 @@ class Settings:
     chain_id: int
     prover_engine: str
     fixed_table_max_gb: float
-    ntt_fused_min_logn: int
+    ntt_pallas_min_logn: int
     prover_sorted_msm: bool
     msm_window_bits: int
     msm_chunk_c: int
@@ -63,7 +63,7 @@ def settings() -> Settings:
         chain_id=int(os.environ.get("OWSHEN_CHAIN_ID") or 918273),
         prover_engine=os.environ.get("OWSHEN_PROVER_ENGINE", "fixed"),
         fixed_table_max_gb=float(os.environ.get("OWSHEN_FIXED_TABLE_MAX_GB") or 40),
-        ntt_fused_min_logn=int(os.environ.get("OWSHEN_NTT_PALLAS_MIN_LOGN") or 31),
+        ntt_pallas_min_logn=int(os.environ.get("OWSHEN_NTT_PALLAS_MIN_LOGN") or 31),
         prover_sorted_msm=os.environ.get("OWSHEN_PROVER_SORTED_MSM") == "1",
         msm_window_bits=int(os.environ.get("OWSHEN_MSM_C") or 16),
         msm_chunk_c=int(os.environ.get("OWSHEN_MSM_CHUNK_C") or 1 << 15),

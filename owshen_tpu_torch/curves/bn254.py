@@ -1,21 +1,41 @@
-"""BN254 (alt_bn128) G1/G2 instances and host <-> tensor point conversion.
+"""BN254 (alt_bn128) G1/G2 instances, generators and host <-> tensor point
+conversion.
 
 G1: y² = x³ + 3 over Fq;  G2: y² = x³ + 3/(9+u) over Fq2 (sextic twist).
-The curve constants live in the host oracle (oracle/curve.py); b3 = 3·b of
-each curve is built into its kernels (kernels/g1.py, kernels/g2.py)."""
+The curve constants are the host oracle's (oracle/curve.py); b3 = 3·b of
+each curve is built into its kernels (kernels/g1.py, kernels/g2.py), and
+`Weierstrass` checks it against the b3 given here."""
 
 from __future__ import annotations
 
 from ..fields.field import FQ, FR
 from ..fields.fq2 import FQ2
-from ..oracle.curve import FQ2I
+from ..oracle.curve import B_G1, B_G2, BN_X, FQ2I, G1_GEN, G2_GEN, XI  # noqa: F401
 from .weierstrass import Weierstrass
 
 Q = FQ.p
 R = FR.p
 
-G1 = Weierstrass(FQ)
-G2 = Weierstrass(FQ2)
+# BN parameter x: q = 36x⁴+36x³+24x²+6x+1, r = 36x⁴+36x³+18x²+6x+1
+assert 36 * BN_X**4 + 36 * BN_X**3 + 24 * BN_X**2 + 6 * BN_X + 1 == Q
+assert 36 * BN_X**4 + 36 * BN_X**3 + 18 * BN_X**2 + 6 * BN_X + 1 == R
+
+
+def _check_generators():
+    # G1 on curve
+    x, y = G1_GEN
+    assert (y * y - (x * x * x + B_G1)) % Q == 0
+    # G2 on curve: y² = x³ + b'
+    x2, y2 = G2_GEN
+    lhs = FQ2I.mul(y2, y2)
+    rhs = FQ2I.add(FQ2I.mul(FQ2I.mul(x2, x2), x2), B_G2)
+    assert lhs == rhs, "G2 generator not on twist curve"
+
+
+_check_generators()
+
+G1 = Weierstrass(FQ, 3 * B_G1)
+G2 = Weierstrass(FQ2, ((3 * B_G2[0]) % Q, (3 * B_G2[1]) % Q))
 
 
 def g1_encode(points, device=None):

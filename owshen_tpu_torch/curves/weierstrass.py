@@ -7,30 +7,48 @@ Points are (X, Y, Z) tuples of field tensors batched over leading axes.
 Every add and double is one kernel launch: over Fq (BN254 G1) K2 / K3
 (kernels/g1.py), over Fq2 (G2) g2_add / g2_double (kernels/g2.py), where
 the JAX package composes the G2 formulas from Fq2 ops that XLA fuses
-(owshen_tpu/curves/weierstrass.py)."""
+(owshen_tpu/curves/weierstrass.py).  The rest (`to_affine`, `eq`,
+`on_curve_affine`) is K1 launches through the field ops (FQ or FQ2), a
+formula's independent products stacked into one."""
 
 from __future__ import annotations
 
 import torch
 
 from ..fields.field import FQ
+from ..fields.fq2 import FQ2
 from ..kernels import g1, g2
 
 
 class Weierstrass:
-    """K: field-op object (FQ for G1, FQ2 for G2); each curve's b3 = 3·b
-    lives in its kernels and their twins."""
+    """K: field-op object (FQ for G1, FQ2 for G2); b3: 3·b as a plain K
+    constant (an int for FQ, (c0, c1) ints for FQ2), as the reference takes
+    it.  The add and double kernels carry their curve's b3 built in
+    (kernels/g1.py `B3`, kernels/g2.py `B3`), so any other b3 is refused:
+    the kernels would add on another curve."""
 
-    def __init__(self, K):
-        self.K = K
+    def __init__(self, K, b3):
         if K is FQ:
-            self._add, self._double = g1.g1_add, g1.g1_double
+            kernel_b3, self._add, self._double = g1.B3, g1.g1_add, g1.g1_double
+            given = int(b3) % K.p
+        elif K is FQ2:
+            kernel_b3, self._add, self._double = g2.B3, g2.g2_add, g2.g2_double
+            given = tuple(int(c) % K.p for c in b3)
         else:
-            self._add, self._double = g2.g2_add, g2.g2_double
+            raise ValueError("the port's point kernels are over BN254 Fq (FQ) and Fq2 (FQ2)")
+        if given != kernel_b3:
+            raise ValueError(f"b3 = {b3}: the {'G1' if K is FQ else 'G2'} kernels are built "
+                             f"for b3 = {kernel_b3}")
+        self.K = K
+        self.b3_int = b3
+        self.b3 = K.encode_const(b3)
 
     def identity_like(self, x):
         K = self.K
         return (K.zeros_like(x), K.one_like(x), K.zeros_like(x))
+
+    def is_identity(self, p):
+        return self.K.is_zero(p[2])
 
     def add(self, p, q):
         """Complete addition (RCB15 algorithm 7, a = 0)."""
@@ -58,13 +76,33 @@ class Weierstrass:
         return acc
 
     def to_affine(self, p):
-        """(X/Z, Y/Z) with the identity mapped to (0, 0), one Fermat
-        inversion of Z on K1.  Over Fq (G1) only: the port has no batched
-        Fq2 product, and decodes G2 points on the host
-        (bn254.g2_decode)."""
+        """(X/Z, Y/Z) with the identity mapped to (0, 0): one inversion of Z
+        (a Fermat chain of K1 products; over Fq2 through the norm, one Fq
+        chain), then both products in one launch."""
         X, Y, Z = p
-        zinv = self.K.inv(Z)
-        return (self.K.mul(X, zinv), self.K.mul(Y, zinv))
+        xy = self.K.mul(torch.stack([X, Y]), self.K.inv(Z))
+        return (xy[0], xy[1])
+
+    def eq(self, p, q):
+        """Projective equality: X1Z2 == X2Z1 and Y1Z2 == Y2Z1 (the four
+        cross products in one launch), or both the identity."""
+        K = self.K
+        coords = torch.broadcast_tensors(*p, *q)
+        p, q = coords[:3], coords[3:]
+        x1z2, x2z1, y1z2, y2z1 = K.mul(torch.stack([p[0], q[0], p[1], q[1]]),
+                                       torch.stack([q[2], p[2], q[2], p[2]]))
+        id_p, id_q = self.is_identity(p), self.is_identity(q)
+        return (id_p & id_q) | (~id_p & ~id_q & K.eq(x1z2, x2z1) & K.eq(y1z2, y2z1))
+
+    def on_curve_affine(self, x, y):
+        """y² == x³ + b, checked as 3y² == 3x³ + b3 as the reference does (b3
+        is the constant the curve holds)."""
+        K = self.K
+        y2, x2 = K.mul(torch.stack([y, x]), torch.stack([y, x]))
+        v = torch.stack([y2, K.mul(x2, x)])                   # y², x³
+        v3 = K.add(K.add(v, v), v)
+        rhs = K.add(v3[1], K.encode_const(self.b3_int, device=x.device))
+        return K.eq(v3[0], rhs)
 
     def sum_reduce(self, p, axis: int = 0):
         """EC sum along `axis` as a halving tree (⌈log₂ n⌉ wide adds; an

@@ -9,18 +9,22 @@ the JAX package.  Each wrapper counts its kernel launches in `.launches`,
 and in `.widths` by width (`count_launch`).
 
 The plain twins work limb-major on int64 (16, N) and run on any device.
-The Montgomery product scans the multiplier in eight 32-bit words: each
-step adds a_i·b and m_i·p (32-bit digit × 16-bit limb < 2^48) into lazily
-carried 16-bit columns, eight terms of each per column, so every column
-stays below 2^52.  The result equals the CUDA kernel's word-serial CIOS and
-the TPU kernel's `_mul_lm_pend`: all three return the canonical a·b·2^-256
-mod p.
+Over more than `SMALL_N` columns the Montgomery product scans the
+multiplier in eight 32-bit words: each step adds a_i·b and m_i·p (32-bit
+digit × 16-bit limb < 2^48) into lazily carried 16-bit columns, eight
+terms of each per column, so every column stays below 2^52.  Over fewer
+columns, where each PyTorch op costs its dispatch and not its width, it
+reduces in one shot (`redc_cols`: the TPU kernel's `_redc_from_cols` form)
+in about a fifth of the ops.  Both equal the CUDA kernel's word-serial CIOS
+and the TPU kernel's `_mul_lm_pend`: all return the canonical
+a·b·2^-256 mod p.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from ..oracle.field import P_FQ, P_FR
@@ -32,15 +36,28 @@ FIELD_INDEX = {"fr": 0, "fq": 1}
 MODULI = {"fr": P_FR, "fq": P_FQ}
 
 
+def limb_rows(v: int, device, n: int = L) -> torch.Tensor:
+    """An integer as n limb-major int64 rows (n, 1)."""
+    return torch.tensor([(v >> (16 * i)) & MASK for i in range(n)],
+                        dtype=torch.int64, device=device)[:, None]
+
+
 class PlainConsts:
     """Per-modulus, per-device constants of the plain twins."""
 
     def __init__(self, p: int, device):
         self.p = p
-        self.p_rows = torch.tensor([(p >> (16 * i)) & MASK for i in range(L)],
-                                   dtype=torch.int64, device=device)[:, None]
+        self.p_rows = limb_rows(p, device)
         n0 = (-pow(p, -1, 1 << 32)) % (1 << 32)      # −p^-1 mod 2^32
         self.n0_lo, self.n0_hi = n0 & MASK, n0 >> 16
+        # one-shot reduction (`redc_cols`): −p^-1 mod 2^256, and 2^256 − k·p
+        # (k = 0, 1, 2), added to a value below 3p so that the carry out of
+        # candidate k says whether k·p fits
+        self.nprime_rows = limb_rows((-pow(p, -1, 1 << 256)) % (1 << 256), device)
+        self.minus_kp = torch.cat([limb_rows(((1 << 256) - k * p) % (1 << 256), device)
+                                   for k in range(3)], dim=1)                   # (16, 3)
+        i = torch.arange(L, device=device)
+        self.col_of = (i[:, None] + i[None, :]).reshape(-1)     # limb product i·j → column i + j
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,9 +94,66 @@ def _reduce_once(t: torch.Tensor, hi: torch.Tensor, c: PlainConsts) -> torch.Ten
     return torch.where((hi != 0) | (top == 0), d, t)
 
 
-def mul_lm(a: torch.Tensor, b: torch.Tensor, c: PlainConsts) -> torch.Tensor:
-    """Montgomery product a·b·2^-256 mod p; a (L, N), b (L, N) or (L, 1)."""
+SMALL_N = 256   # columns up to which mul_lm reduces in one shot: the two forms
+                # cost the same at 256 on one CPU core, one shot is 2× faster at 64
+
+
+def _fold(x: torch.Tensor, top: torch.Tensor | None = None) -> None:
+    """One carry pass over limb axis 0, in place: each limb keeps its low
+    16 bits and passes the rest up; the carry out of the top limb is added
+    to `top`, or dropped (the value is then kept mod 2^256)."""
+    c = x >> 16
+    x &= MASK
+    x[1:] += c[:-1]
+    if top is not None:
+        top += c[-1]
+
+
+def prod_cols(a: torch.Tensor, b: torch.Tensor, c: PlainConsts) -> torch.Tensor:
+    """(2L, N) column sums of the limb products a_i·b_j at column i + j;
+    a, b (L, N) or (L, 1) with limbs below 2^17: each column < 2^38."""
     n = max(a.shape[1], b.shape[1])
+    return a.new_zeros(2 * L, n).index_add_(0, c.col_of, (a[:, None] * b[None]).reshape(L * L, n))
+
+
+def redc_cols(t: torch.Tensor, c: PlainConsts) -> torch.Tensor:
+    """Canonical T·2^-256 mod p of T given as (2L, N) lazily carried columns
+    below 2^40 (changed in place), for T < 1.9·2^256·p: a product of two
+    values below 2p, a sum of three products of a value below 2p and a
+    canonical one, or a canonical 2L-limb T < 2^256·p.
+
+    One-shot Montgomery reduction: m ≡ T·(−p^-1) mod 2^256 from the low
+    columns (three carry passes leave m's limbs ≤ 2^16 + 2^12, so
+    m < 1.07·2^256), U = T + m·p has a low half ≡ 0 mod 2^256, whose carry
+    out follows from its top three columns alone (the lower ones add less
+    than 1 after division, and the division is exact), and U / 2^256 < 3p:
+    its three candidates U/2^256 − k·p are carried out together (three
+    passes, then `ripple` for what is left) and the largest k that fits is
+    taken."""
+    n = t.shape[1]
+    m = t.new_zeros(2 * L, n).index_add_(
+        0, c.col_of, (t[:L, None] * c.nprime_rows[None]).reshape(L * L, n))[:L]
+    for _ in range(3):
+        _fold(m)
+    t.index_add_(0, c.col_of, (m[:, None] * c.p_rows[None]).reshape(L * L, n))
+    hi = t[L:]
+    hi[0] += (t[L - 1] + ((t[L - 2] + (t[L - 3] >> 16)) >> 16) + MASK) >> 16
+    x = (hi[:, None] + c.minus_kp[:, :, None]).reshape(L, 3 * n)
+    top = t.new_zeros(3 * n)
+    for _ in range(3):
+        _fold(x, top)
+    top += ripple(x)                                # limbs ≤ 2^16: rarely a pass
+    k = top.view(3, n)[1:].sum(0)                   # how many p fit: 0, 1 or 2
+    return x.view(L, 3, n).gather(1, k.expand(L, 1, n))[:, 0]
+
+
+def mul_lm(a: torch.Tensor, b: torch.Tensor, c: PlainConsts) -> torch.Tensor:
+    """Montgomery product a·b·2^-256 mod p; a (L, N), b (L, N) or (L, 1);
+    values below 2p with limbs below 2^17 (a lazy sum of two canonical
+    values) are taken as well as canonical ones."""
+    n = max(a.shape[1], b.shape[1])
+    if n <= SMALL_N:
+        return redc_cols(prod_cols(a, b, c), c)
     a32 = a[0::2] + (a[1::2] << 16)                  # (8, ·) 32-bit words
     acc = torch.zeros(2 * L + 1, n, dtype=torch.int64, device=a.device)
     for i in range(L // 2):
@@ -113,6 +187,13 @@ def sub_lm(a: torch.Tensor, b: torch.Tensor, c: PlainConsts) -> torch.Tensor:
     return d
 
 
+def broadcast_shape(*shapes) -> torch.Size:
+    """torch.broadcast_shapes by numpy's rule: the same shape, without
+    torch's first-call import of its symbolic-shape machinery (~0.7 s) and
+    at ~4 µs a call instead of ~20 (one CPU core)."""
+    return torch.Size(np.broadcast_shapes(*shapes))
+
+
 def to_lm(x: torch.Tensor) -> torch.Tensor:
     """int32 (..., 16) -> int64 limb-major (16, N)."""
     return x.reshape(-1, L).T.to(torch.int64).contiguous()
@@ -127,18 +208,23 @@ PLAIN_CHUNK = 1 << 15   # columns per plain call: keeps int64 temporaries in cac
 
 def plain_chunked(fn, n: int, *args, chunk: int = PLAIN_CHUNK):
     """fn over row blocks [i, i + chunk) of (N, ...) arguments (a 1-row
-    argument is passed whole), outputs concatenated on axis 0."""
-    if n <= chunk:
-        return fn(*args)
-    outs = [fn(*(x if x.shape[0] == 1 else x[i:i + chunk] for x in args))
-            for i in range(0, n, chunk)]
-    if isinstance(outs[0], tuple):
-        return tuple(torch.cat(parts) for parts in zip(*outs))
-    return torch.cat(outs)
+    argument is passed whole), outputs concatenated on axis 0.  fn runs
+    under torch.inference_mode, which skips autograd's bookkeeping (about a
+    quarter of a small twin call, one CPU core); the outputs are copied out
+    of it, so callers may change them in place."""
+    with torch.inference_mode():
+        if n <= chunk:
+            out = fn(*args)
+        else:
+            outs = [fn(*(x if x.shape[0] == 1 else x[i:i + chunk] for x in args))
+                    for i in range(0, n, chunk)]
+            out = (tuple(torch.cat(parts) for parts in zip(*outs))
+                   if isinstance(outs[0], tuple) else torch.cat(outs))
+    return tuple(o.clone() for o in out) if isinstance(out, tuple) else out.clone()
 
 
 def _plain_binary(fn, a, b, field):
-    shape = torch.broadcast_shapes(a.shape, b.shape)
+    shape = broadcast_shape(a.shape, b.shape)
     c = plain_consts(field, a.device)
     rows = [x.reshape(1, L) if x.numel() == L else x.expand(shape).reshape(-1, L)
             for x in (a, b)]
@@ -226,7 +312,7 @@ def stream_handle(device: torch.device) -> int:
 
 
 def _launch_binary(entry: str, wrapper, a, b, field: str) -> torch.Tensor:
-    shape = torch.broadcast_shapes(a.shape, b.shape)
+    shape = broadcast_shape(a.shape, b.shape)
     n = 1
     for d in shape[:-1]:
         n *= d

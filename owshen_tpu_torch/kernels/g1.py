@@ -18,9 +18,12 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .field_ops import (add_lm, count_launch, from_lm, keep_operands, kernel_operand, mul_lm,
-                        on_cpu, PLAIN_CHUNK, plain_chunked, plain_consts, stream_handle, sub_lm,
-                        to_lm)
+from .field_ops import (add_lm, broadcast_shape, count_launch, from_lm, keep_operands,
+                        kernel_operand, mul_lm, on_cpu, PLAIN_CHUNK, plain_chunked, plain_consts,
+                        stream_handle, sub_lm, to_lm)
+
+
+B3 = 9   # 3·b of y² = x³ + 3: K2, K3 and FqOps.mul_b3 multiply by it as 2·2·2·x + x
 
 
 class FqOps:
@@ -61,19 +64,19 @@ class FqOps:
 
 def add_lm_pts(F, p, q):
     """RCB15 algorithm 7 (a = 0) over the field ops F (FqOps, or the Fq2
-    ops of kernels/g2.py), the operation order of
-    owshen_tpu/curves/weierstrass.py."""
+    ops of kernels/g2.py): the products and sums of
+    owshen_tpu/curves/weierstrass.py, the independent ones of a step
+    side by side in one call."""
     cat, split = F.cat, F.split
     X1, Y1, Z1 = p
     X2, Y2, Z2 = q
-    t0, t1, t2 = split(F.mul(cat(X1, Y1, Z1), cat(X2, Y2, Z2)), 3)
-    sums = F.add(cat(X1, Y1, X1, X2, Y2, X2), cat(Y1, Z1, Z1, Y2, Z2, Z2))
-    s1, s2 = split(sums, 2)
+    s1, s2 = split(F.add(cat(X1, Y1, X1, X2, Y2, X2), cat(Y1, Z1, Z1, Y2, Z2, Z2)), 2)
+    t0, t1, t2, *st = split(F.mul(cat(X1, Y1, Z1, s1), cat(X2, Y2, Z2, s2)), 6)
+    *q3, two_t0 = split(F.add(cat(t0, t1, t0, t0), cat(t1, t2, t2, t0)), 4)
     # t3 = X1Y2 + X2Y1, t4 = Y1Z2 + Y2Z1, t5 = X1Z2 + X2Z1
-    t3, t4, t5 = split(F.sub(F.mul(s1, s2), F.add(cat(t0, t1, t0), cat(t1, t2, t2))), 3)
-    three_t0 = F.add(F.add(t0, t0), t0)
+    t3, t4, t5 = split(F.sub(cat(*st), cat(*q3)), 3)
     t2b, y3 = split(F.mul_b3(cat(t2, t5)), 2)
-    z3 = F.add(t1, t2b)
+    z3, three_t0 = split(F.add(cat(t1, two_t0), cat(t2b, t0)), 2)
     t1b = F.sub(t1, t2b)
     u = split(F.mul(cat(t3, y3, z3, t4, t1b, three_t0),
                     cat(t1b, three_t0, t4, y3, z3, t3)), 6)
@@ -92,16 +95,15 @@ def double_lm_pts(F, p):
     z3 = F.add(z3, z3)
     z3 = F.add(z3, z3)                               # 8Y²
     t2 = F.mul_b3(zz)
-    X3, Z3 = split(F.mul(cat(t2, t1), cat(z3, z3)), 2)
-    Y3 = F.add(t0, t2)
-    t2 = F.add(F.add(t2, t2), t2)                    # 3·b3·Z²
-    t0 = F.sub(t0, t2)
-    ty, tx = split(F.mul(cat(t0, t0), cat(Y3, xy)), 2)
-    return F.add(tx, tx), F.add(X3, ty), Z3
+    Y3, two_t2 = split(F.add(cat(t0, t2), cat(t2, t2)), 2)
+    t0 = F.sub(t0, F.add(two_t2, t2))                # Y² − 3·b3·Z²
+    X3, Z3, ty, tx = split(F.mul(cat(t2, t1, t0, t0), cat(z3, z3, Y3, xy)), 4)
+    X3, Y3 = split(F.add(cat(tx, X3), cat(tx, ty)), 2)
+    return X3, Y3, Z3
 
 
 def broadcast_coords(*coords):
-    shape = torch.broadcast_shapes(*(c.shape for c in coords))
+    shape = broadcast_shape(*(c.shape for c in coords))
     return [c.expand(shape) for c in coords], shape
 
 

@@ -14,8 +14,8 @@ import torch
 
 from ..ops.constants import mimc7_constants
 from . import build
-from .field_ops import (MODULI, add_lm, count_launch, from_lm, keep_operands, kernel_operand,
-                        mul_lm, on_cpu, plain_consts, stream_handle, to_lm)
+from .field_ops import (MODULI, add_lm, broadcast_shape, count_launch, from_lm, keep_operands,
+                        kernel_operand, mul_lm, on_cpu, plain_consts, stream_handle, to_lm)
 
 
 @functools.lru_cache(maxsize=None)
@@ -28,7 +28,7 @@ def round_constants_lm(device: torch.device) -> torch.Tensor:
 
 
 def mimc_hash2_plain(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
-    shape = torch.broadcast_shapes(left.shape, right.shape)
+    shape = broadcast_shape(left.shape, right.shape)
     c = round_constants_lm(left.device)
     fr = plain_consts("fr", left.device)
     mul = lambda a, b: mul_lm(a, b, fr)  # noqa: E731
@@ -56,7 +56,7 @@ def mimc_hash2(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     """MultiMiMC7([left, right], key 0) (K6)."""
     if on_cpu(left, right):
         return mimc_hash2_plain(left, right)
-    shape = torch.broadcast_shapes(left.shape, right.shape)
+    shape = broadcast_shape(left.shape, right.shape)
     lt = kernel_operand(left.expand(shape))
     rt = kernel_operand(right.expand(shape))
     n = lt.shape[0]

@@ -90,6 +90,28 @@ def verify_path(leaf, siblings, bits, root, hash_name: str = "poseidon") -> torc
     return FR.eq(node, root)
 
 
+def hash_paths(batches) -> None:
+    """Scatter each (tree, leaf indices, values) of `batches` into its tree
+    and re-hash the paths up to the roots: the trees (one device, one depth
+    and one hash) share one node-hash launch a level, over the k parents of
+    every batch side by side."""
+    trees = [t for t, _, _ in batches]
+    h2 = HASH2[trees[0].hash_name]
+    js = []
+    for tree, idx, values in batches:
+        j = torch.as_tensor(idx, device=tree.device) + (1 << tree.depth)
+        tree.nodes[j] = values.to(tree.device)
+        js.append(j)
+    sizes = [j.numel() for j in js]
+    for _ in range(trees[0].depth):
+        ps = [j >> 1 for j in js]
+        h = h2(torch.cat([t.nodes[p << 1] for t, p in zip(trees, ps)]),
+               torch.cat([t.nodes[(p << 1) | 1] for t, p in zip(trees, ps)]))
+        for t, p, part in zip(trees, ps, h.split(sizes)):
+            t.nodes[p] = part
+        js = ps
+
+
 class SparseMerkleTree:
     """Fixed-depth sparse Merkle tree (Poseidon or MiMC node hash) stored
     densely on a device."""
@@ -123,14 +145,7 @@ class SparseMerkleTree:
             raise ValueError("batch_insert requires unique leaf indices within a batch")
         if host_idx.size and (host_idx.min() < 0 or host_idx.max() >= (1 << self.depth)):
             raise ValueError("leaf index out of range")
-        h2 = HASH2[self.hash_name]
-        j = torch.as_tensor(host_idx, device=self.device) + (1 << self.depth)
-        nodes = self.nodes
-        nodes[j] = values.to(self.device)
-        for _ in range(self.depth):
-            p = j >> 1
-            nodes[p] = h2(nodes[p << 1], nodes[(p << 1) | 1])
-            j = p
+        hash_paths([(self, host_idx, values)])
 
     def insert_ints(self, indices, values_int) -> None:
         self.batch_insert(indices, FR.encode(list(values_int), device=self.device))

@@ -5,7 +5,7 @@ owshen_tpu/pallas/ntt_kernels.py.
 bit-reversal gather, then log₂n stages, each one launch of K5
 (kernels/ntt.py `butterfly_stage`) in place on the transform's array, at
 every size (the TPU's 2^14-row threshold for its butterfly kernel came from
-Mosaic's lane tiling).  From `settings().ntt_fused_min_logn` up (default 31,
+Mosaic's lane tiling).  From `settings().ntt_pallas_min_logn` up (default 31,
 opt-in, as on the TPU) they route 2-D inputs to `ntt_fused`, the port of
 `ntt_pallas`: a recursive Bailey split into fused column NTTs (K7) of at
 most 2^FUSED_MAX_LOGN points, with one K1 multiply for the ω^{k1·i2}
@@ -20,7 +20,7 @@ import functools
 
 import torch
 
-from ..config import settings
+from ..config import resolve_device, settings
 from ..fields.field import FR, Field
 from ..kernels.ntt import bitrev_indices, butterfly_stage, ntt_cols
 
@@ -49,9 +49,14 @@ def powers_device(F: Field, base: int, n: int, device) -> torch.Tensor:
 
 
 class NttDomain:
-    """Power-of-two evaluation domain over Fr with per-device tables."""
+    """Power-of-two evaluation domain over Fr with per-device tables.
 
-    def __init__(self, log_n: int, field: Field = FR):
+    `pows`, `pows_inv` (n/2 twiddles, at least 1), `coset_pows` and
+    `coset_pows_inv` (n each) are the reference's tables, on `device`: the
+    card unless the caller asks for another (config.resolve_device).  The
+    transforms take their tables on their input's device."""
+
+    def __init__(self, log_n: int, field: Field = FR, *, device=None):
         if log_n > field.two_adicity:
             raise ValueError(f"2^{log_n} exceeds the field's two-adicity")
         self.F = field
@@ -62,7 +67,24 @@ class NttDomain:
         self.omega_inv = pow(self.omega, -1, p)
         self.n_inv = pow(self.n, -1, p)
         self.coset_gen = field.generator   # the generator lies outside H
+        self.device = device
         self._tables: dict = {}
+
+    @functools.cached_property
+    def pows(self) -> torch.Tensor:
+        return self._table("pows", resolve_device(self.device))
+
+    @functools.cached_property
+    def pows_inv(self) -> torch.Tensor:
+        return self._table("pows_inv", resolve_device(self.device))
+
+    @functools.cached_property
+    def coset_pows(self) -> torch.Tensor:
+        return self._table("coset", resolve_device(self.device))
+
+    @functools.cached_property
+    def coset_pows_inv(self) -> torch.Tensor:
+        return self._table("coset_inv", resolve_device(self.device))
 
     def _table(self, name: str, device):
         dev = torch.device(device)
@@ -95,7 +117,7 @@ class NttDomain:
 
     def _fused_ok(self, x: torch.Tensor) -> bool:
         return (self.F is FR and x.ndim == 2
-                and self.log_n >= settings().ntt_fused_min_logn)
+                and self.log_n >= settings().ntt_pallas_min_logn)
 
     def ntt(self, x: torch.Tensor) -> torch.Tensor:
         if self._fused_ok(x):

@@ -100,6 +100,14 @@ class WCurve:
             k >>= 1
         return acc
 
+    def on_curve(self, p):
+        if p is None:
+            return True
+        K = self.K
+        x, y = p
+        x3b = K.add(K.mul(K.mul(x, x), x), self.b)
+        return K.mul(y, y) == x3b
+
     def msm(self, points, scalars):
         acc = None
         for p, s in zip(points, scalars):
@@ -146,6 +154,7 @@ JUB_BASE = (
 )
 # reference babyjubjub/mod.rs:185-188 (curve order = 8 * prime subgroup order)
 JUB_ORDER = 21888242871839275222246405745257275088614511777268538073601725287587578984328
+JUB_SUBORDER = JUB_ORDER // 8
 
 
 def jub_add(p, q):

@@ -36,5 +36,31 @@ class Fp:
     def pow(self, a, e):
         return pow(a, e, self.p)
 
+    def sqrt(self, a):
+        """Tonelli–Shanks; returns None if a is not a QR."""
+        p = self.p
+        a %= p
+        if a == 0:
+            return 0
+        if pow(a, (p - 1) // 2, p) != 1:
+            return None
+        if p % 4 == 3:
+            return pow(a, (p + 1) // 4, p)
+        s = ((p - 1) & -(p - 1)).bit_length() - 1
+        q = (p - 1) >> s
+        z = 2
+        while pow(z, (p - 1) // 2, p) != p - 1:
+            z += 1
+        m, c, t, r = s, pow(z, q, p), pow(a, q, p), pow(a, (q + 1) // 2, p)
+        while t != 1:
+            i, tt = 0, t
+            while tt != 1:
+                tt = tt * tt % p
+                i += 1
+            b = pow(c, 1 << (m - i - 1), p)
+            m, c = i, b * b % p
+            t, r = t * c % p, r * b % p
+        return r
+
 FR = Fp(P_FR)
 FQ = Fp(P_FQ)

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from ..fields.field import FR
-from ..ops.merkle import HASH2, HASH2_ORACLE, SparseMerkleTree, build_levels
+from ..ops.merkle import HASH2, HASH2_ORACLE, SparseMerkleTree, build_levels, hash_paths
 from .mesh import Mesh, gather, on, shard_leading
 
 
@@ -44,7 +44,9 @@ class DistSparseMerkleTree:
     its device.  A batch is split by owner on the host and only the owners
     re-hash their paths; then the d subtree roots are gathered and the top
     log₂ d levels hashed (the reference scatters every shard's non-owned
-    rows into an inert heap slot instead, to keep one shard_map body)."""
+    rows into an inert heap slot instead, to keep one shard_map body).
+    Owners that share a device re-hash their paths together, one node-hash
+    launch a level (`ops.merkle.hash_paths`)."""
 
     def __init__(self, mesh: Mesh, depth: int, hash_name: str = "poseidon"):
         d = mesh.size
@@ -78,11 +80,14 @@ class DistSparseMerkleTree:
             raise ValueError("leaf index out of range")
         owner = host_idx >> self.local_depth
         local = host_idx & ((1 << self.local_depth) - 1)
+        by_device: dict = {}
         for c in np.unique(owner).tolist():
             sel = np.nonzero(owner == c)[0]
-            tree, dev = self.trees[c], self.mesh.devices[c]
+            by_device.setdefault(self.mesh.devices[c], []).append(
+                (self.trees[c], local[sel], values[torch.as_tensor(sel, device=values.device)]))
+        for dev, batches in by_device.items():
             with on(dev):
-                tree.batch_insert(local[sel], values[torch.as_tensor(sel, device=values.device)].to(dev))
+                hash_paths(batches)
         with on(self.mesh.devices[0]):
             return _hash_tops(self._tops(), self.hash_name)
 
