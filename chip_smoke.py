@@ -23,7 +23,12 @@
    stores of K7 in the built libraries' SASS (cuobjdump).  The G2 kernels
    are timed at 8192 points (the fixed-table build) and 2^18 (the top level
    of the prover's G2 fold); K3 at 8192 points, 2^18 and one point (its
-   launch floor).
+   launch floor).  K1's BabyJubJub add and ladder (kernels/jub.py) at 1,
+   63, 64, 65, 4096 and 2^16 lanes on edge rows (the identity, P + P,
+   P + (−P), the 8-torsion; the scalars 0, 1, 2^253, 2^254 − 1, p − 1), 36
+   to 64 of them decoded against the host oracle; timed at the verify's
+   4096 lanes (the add also at one) and the sign's 8192, the ladder's bound
+   from this run's scalars (the doubles and adds their bits need).
 3. Drives the depth-16 pool round trip through the entry points a user
    calls: PrivacyPool(depth=16) with a real setup of the 4431-constraint
    withdraw circuit, a deposit of 4096 commitments, the root against the
@@ -43,15 +48,21 @@
    eddsa_sign_batch (64 seeded picks equal to oracle.eddsa.sign), all 4096
    accepted by eddsa_verify (three warm batches timed, one profiled for its
    device-busy share), and a seeded eighth tampered (message, s + 1, R off
-   the curve) rejected on exactly those lanes; then withdraw_batch of two
+   the curve) rejected on exactly those lanes; the verify must make one
+   jub_scalar_mul and 32 jub_add launches and a warm sign 31 jub_add; then
+   withdraw_batch of two
    fresh proofs after an in-batch duplicate nullifier is rejected with no
    state change, verify_vouchers_batch, each voucher through encode_voucher
    -> verify_voucher_bytes -> redeem, a deposit batch popped (the root back
    to the earlier one and the host oracle's) and deposited again, and
    save_pool / load_pool through a temporary directory (bytes and seconds;
    the loaded pool on the card with an equal root, a prove from it with no
-   table build that verifies, a pop after the load).  Launch counts zeroed
-   before; K1 and K4 must be > 0.  Then K1 and K4 are held against their
+   table build that verifies, a pop after the load); the launches of the
+   verify, the sign, withdraw_batch and verify_vouchers_batch by kernel.
+   Launch counts zeroed before; K1, K4 and the two Edwards kernels must be
+   > 0.  Every (kernel, width) the phase launched is held against its
+   plain twin on its own operands (kernels.capture_operands), after the
+   last profiled measurement.  Then K1 and K4 are held against their
    plain twins on the verify batch's operands at every width the EdDSA
    batch launched them (K1 on 1 to 36 stacked batches of 4096 rows and
    with a broadcast constant operand, K4 at 4096); a width launched and
@@ -214,6 +225,9 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9 * 2
 MUL_OPS = 128 * 2 * 2       # 128 32×32→64 products = 256 multiply-adds = 512 ops
 SQR_OPS = 100 * 2 * 2       # a square: 36 word products + 64 to reduce
+# a product by a constant below 2^32: 8 word products, and 8 to take the one
+# word above 2^256 back below p
+SMALL_MUL_OPS = 16 * 2 * 2
 ADD_OPS = 3 * 8             # add/sub with carry, subtract p, select: 8 words each
 ROW = 64                    # bytes of one int32[16] field element
 BFLY_OPS = MUL_OPS + 2 * ADD_OPS
@@ -232,6 +246,21 @@ G2_DOUBLE_WORK = (6 * 3 + 2 * 2 + 3, 6 * 5 + 2 * 3 + 4 + 9 * 2)
 # the second half, Y² and Z², and 13 adds (8·Y² 3, 9·Z² 4, Y3 1, 3·t2 2,
 # t0 1, X3 and Y3 2)
 G1_DOUBLE_WORK = (6, 2, 13)
+# (Fr products, squares, adds and subtracts, products by a constant) of a
+# BabyJubJub add and double, the reference's formulas (mod.rs:118-163), the
+# least work: A·c and D·cd are products by a one-word constant (A, D < 2^18),
+# as the JAX package's `mul_const` takes them (kernels/jub.py;
+# tests/test_torch_jub_kernels.py checks the counts)
+JUB_ADD_WORK = (10, 1, 7, 2)
+JUB_DOUBLE_WORK = (3, 4, 7, 1)
+
+
+def jub_ops(work: tuple) -> int:
+    return sum(n * ops for n, ops in zip(work, (MUL_OPS, SQR_OPS, ADD_OPS, SMALL_MUL_OPS)))
+
+
+JUB_ADD_OPS = jub_ops(JUB_ADD_WORK)
+JUB_DOUBLE_OPS = jub_ops(JUB_DOUBLE_WORK)
 
 
 def ntt_cols_work(log_n1: int) -> tuple[int, int]:
@@ -262,6 +291,12 @@ KERNELS = {
                "owshen_tpu/curves/weierstrass.py:110"),
     "g2_double": ("owshen_tpu_torch/kernels/csrc/g2.cu",
                   "owshen_tpu/curves/weierstrass.py:152"),
+    # K1's BabyJubJub point operations: they replace the JAX package's
+    # K1-composed Edwards add and its lax.scan ladder, which XLA fuses
+    "jub_add": ("owshen_tpu_torch/kernels/csrc/jub.cu",
+                "owshen_tpu/curves/babyjubjub.py:63"),
+    "jub_scalar_mul": ("owshen_tpu_torch/kernels/csrc/jub.cu",
+                       "owshen_tpu/curves/babyjubjub.py:151"),
     "poseidon_hash2": ("owshen_tpu_torch/kernels/csrc/poseidon.cu",
                        "owshen_tpu/pallas/field_kernels.py:388"),
     "ntt_butterfly": ("owshen_tpu_torch/kernels/csrc/ntt.cu",
@@ -282,6 +317,7 @@ PER_ITEM = {
                   + G1_DOUBLE_WORK[2] * ADD_OPS),
     "g2_add": (18 * ROW, G2_ADD_WORK[0] * MUL_OPS + G2_ADD_WORK[1] * ADD_OPS),
     "g2_double": (12 * ROW, G2_DOUBLE_WORK[0] * MUL_OPS + G2_DOUBLE_WORK[1] * ADD_OPS),
+    "jub_add": (9 * ROW, JUB_ADD_OPS),
     "poseidon_hash2": (3 * ROW, 162 * SQR_OPS + 666 * MUL_OPS + 585 * ADD_OPS),
     "mimc_hash2": (3 * ROW, MIMC_OPS),
 }
@@ -297,7 +333,8 @@ DEPTH16_KERNELS = ("mont_mul", "mod_add", "mod_sub", "g1_add", "g1_double", "g2_
 KERNEL_SYMBOLS = {"mont_mul": "field_op_kernel<0>", "mod_add": "field_op_kernel<1>",
                   "mod_sub": "field_op_kernel<2>", "g1_add": "g1_add_kernel",
                   "g1_double": "g1_dbl_kernel", "g2_add": "g2_add_kernel",
-                  "g2_double": "g2_dbl_kernel", "poseidon_hash2": "poseidon2_kernel",
+                  "g2_double": "g2_dbl_kernel", "jub_add": "jub_add_kernel",
+                  "jub_scalar_mul": "jub_ladder_kernel", "poseidon_hash2": "poseidon2_kernel",
                   "ntt_butterfly": "ntt_stage_kernel", "mimc_hash2": "mimc2_kernel",
                   "ntt_cols": "ntt_cols_kernel"}
 
@@ -496,6 +533,156 @@ def edge_points(torch, gen, n: int, dev, group: str = "g1"):
     want = [curve.add(a, b) for a, b in zip(real, qs)]
     want_dbl = [curve.add(a, a) for a in real]
     return p, q, want, want_dbl
+
+
+# K1's BabyJubJub kernels (kernels/jub.py): the verify's 4096 lanes, the
+# sign's 8192, and 2^16 where a ladder of that many lanes fills the card
+JUB_N = 4096
+JUB_SIGN_N = 2 * JUB_N
+JUB_WIDE = 1 << 16
+JUB_CHECK_NS = (1, 63, 64, 65, JUB_N, JUB_WIDE)
+JUB_BITS = 254              # the verify's scalar_mul_int
+JUB_HEAD = 64               # edge rows, their sums held against the host oracle
+JUB_ORACLE = 36             # edge rows whose ladder is held against it (~1 s of host)
+
+
+def jub_small_order() -> list:
+    """BabyJubJub's eight points of order dividing 8 as (x, y) ints, k·T for
+    k = 0 … 7: the identity, (0, −1) of order 2 (4T), two of order 4 (2T,
+    6T) and four of order 8, where T = SUBORDER·(x, y) for the first x ≥ 2
+    on the curve whose multiple has order 8."""
+    from owshen_tpu_torch.oracle import curve as oc
+    from owshen_tpu_torch.oracle.field import FR as HFR
+
+    p = HFR.p
+    for x in range(2, 1000):
+        y = HFR.sqrt((1 - oc.JUB_A * x * x) * pow(1 - oc.JUB_D * x * x, -1, p))
+        if y is None:
+            continue
+        t = oc.jub_mul((x, y), oc.JUB_SUBORDER)
+        if oc.jub_mul(t, 4) != (0, 1):
+            return [oc.jub_mul(t, k) for k in range(8)]
+    fail("no point of order 8 among the first x")
+
+
+def jub_edge_inputs(torch, gen, n: int, dev):
+    """n ≥ JUB_HEAD inputs (p, q, k) of the BabyJubJub kernels: in the first JUB_HEAD
+    rows points of the curve — O + O, P + O, O + Q, P + P, P + (−P), the
+    8-torsion against itself and against multiples of the base point, those
+    multiples paired with their neighbours, rows 32 on scaled (λX : λY : λZ)
+    — and the scalars 0, 1, 2, 3, 2^253, 2^254 − 1, p − 1, p − 2, the
+    suborder and its neighbours and 2^128 on rows 1 and 24 on, seeded ones
+    below p on the others (raw limbs, none reduced); random canonical
+    coordinates and scalars after.  With the host oracle's p + q of the
+    JUB_HEAD rows and (k mod 2^JUB_BITS)·p of the first JUB_ORACLE."""
+    from owshen_tpu_torch.fields.field import FR, ints_to_tensor
+    from owshen_tpu_torch.oracle import curve as oc
+    from owshen_tpu_torch.oracle.field import P_FR
+
+    rng = random.Random(0x10B)
+    small = jub_small_order()
+    neg = lambda pt: ((-pt[0]) % P_FR, pt[1])  # noqa: E731
+    step = oc.jub_mul(oc.JUB_BASE, rng.randrange(1, oc.JUB_SUBORDER))
+    mults = [oc.jub_mul(oc.JUB_BASE, rng.randrange(1, oc.JUB_SUBORDER))]
+    for _ in range(JUB_HEAD - 1):
+        mults.append(oc.jub_add(mults[-1], step))
+    ps, qs = list(mults), mults[1:] + mults[:1]
+    ps[0] = qs[0] = qs[1] = ps[2] = small[0]                 # O + O, P + O, O + Q
+    qs[3], qs[4] = ps[3], neg(ps[4])                         # P + P, P + (−P)
+    for i in range(8):                                       # the torsion
+        ps[5 + i], qs[5 + i] = small[i], small[(3 * i + 1) % 8]
+        ps[13 + i], qs[13 + i] = small[i], neg(small[i])
+        ps[21 + i], qs[21 + i] = mults[21 + i], small[i]
+    special = [0, 1, 2, 3, 1 << 253, (1 << 254) - 1, P_FR - 1, P_FR - 2, oc.JUB_SUBORDER,
+               oc.JUB_SUBORDER - 1, oc.JUB_SUBORDER + 1, 1 << 128]
+    ks = [rng.randrange(P_FR) for _ in range(JUB_HEAD)]
+    ks[1:13] = ks[24:36] = special                           # on the edge rows, on multiples
+
+    def encode(pts):
+        lam = [1] * 32 + [rng.randrange(1, P_FR) for _ in range(JUB_HEAD - 32)]
+        return tuple(FR.encode([v * m % P_FR for v, m in zip(vals, lam)])
+                     for vals in ([pt[0] for pt in pts], [pt[1] for pt in pts], [1] * len(pts)))
+
+    head = encode(ps) + encode(qs)
+    tail = [rand_field(torch, gen, P_FR, n - JUB_HEAD, "cpu") if n > JUB_HEAD
+            else torch.zeros((0, 16), dtype=torch.int32) for _ in range(7)]
+    cols = [torch.cat([h, t]).to(dev) for h, t in zip(head, tail)]
+    k = torch.cat([ints_to_tensor(ks), tail[6]]).to(dev)
+    want_add = [oc.jub_add(a, b) for a, b in zip(ps, qs)]
+    want_mul = [oc.jub_mul(a, v % (1 << JUB_BITS)) for a, v in zip(ps[:JUB_ORACLE], ks)]
+    return tuple(cols[:3]), tuple(cols[3:6]), k, want_add, want_mul
+
+
+def ladder_work(torch, k, n_bits: int) -> tuple[int, int]:
+    """(doubles, adds) the double-and-add of these scalars needs at the
+    least, over every lane: from the top set bit below n_bits down, a
+    double a bit and an add a further set bit."""
+    from owshen_tpu_torch.fields.field import tensor_to_ints
+
+    doubles = adds = 0
+    for v in tensor_to_ints(k):
+        v &= (1 << n_bits) - 1
+        doubles += max(v.bit_length() - 1, 0)
+        adds += max(bin(v).count("1") - 1, 0)
+    return doubles, adds
+
+
+def jub_affine(pt) -> list:
+    """Projective Fr coordinates -> [(x, y)], divided on the host."""
+    from owshen_tpu_torch.fields.field import FR
+
+    X, Y, Z = (FR.decode(c) for c in pt)
+    return [(x * pow(z, -1, FR.p) % FR.p, y * pow(z, -1, FR.p) % FR.p) for x, y, z in zip(X, Y, Z)]
+
+
+def jub_kernel_checks(torch, dev, gen, record) -> dict:
+    """K1's Edwards add and ladder against their plain twins at
+    JUB_CHECK_NS lanes on jub_edge_inputs (the twin once at the widest, the
+    kernel at each width against its head), the head rows against the host
+    oracle; each timed at JUB_N lanes (`record`), the add also at one lane
+    and both also at JUB_SIGN_N."""
+    from owshen_tpu_torch.kernels import jub
+
+    head = lambda pt, m: tuple(c[:m] for c in pt)  # noqa: E731
+    p, q, k, want_add, want_mul = jub_edge_inputs(torch, gen, JUB_WIDE, dev)
+    out = {}
+    for name, kernel, plain, args, want in (
+            ("jub_add", jub.jub_add, jub.jub_add_plain, (p, q), want_add),
+            ("jub_scalar_mul", jub.jub_scalar_mul, jub.jub_scalar_mul_plain, (p, k, JUB_BITS),
+             want_mul)):
+        cut = lambda m: tuple(head(a, m) if isinstance(a, tuple) else  # noqa: E731
+                              a[:m] if isinstance(a, torch.Tensor) else a for a in args)
+        t = time.time()
+        twin = plain(*args)
+        torch.cuda.synchronize()
+        twin_s = time.time() - t
+        if jub_affine(head(twin, len(want))) != want:
+            fail(f"{name}: the plain twin differs from the host oracle on the edge rows")
+        got = kernel(*args)
+        if jub_affine(head(got, len(want))) != want:
+            fail(f"{name}: wrong results on the edge rows")
+        cases = {f"n={m}": max_abs_err(torch, kernel(*cut(m)), head(twin, m))
+                 for m in JUB_CHECK_NS}
+        sign_ms = device_ms(torch, lambda: kernel(*cut(JUB_SIGN_N)), 20, KERNEL_SYMBOLS[name])
+        print(f"{name} max |diff| by case: " + json.dumps(cases), flush=True)
+        print(f"{name}: n={JUB_SIGN_N} {sign_ms:.5f} ms on the device; the twin over "
+              f"{JUB_WIDE} lanes {twin_s:.2f} s", flush=True)
+        for case, err in cases.items():
+            if err != 0:
+                fail(f"{name} ({case}): kernel disagrees with its plain version")
+        sub = cut(JUB_N)
+        if name == "jub_add":
+            work = None
+        else:
+            doubles, adds = ladder_work(torch, k[:JUB_N], JUB_BITS)
+            work = (JUB_N * 7 * ROW, doubles * JUB_DOUBLE_OPS + adds * JUB_ADD_OPS)
+        record(name, JUB_N, lambda: kernel(*sub), lambda: plain(*sub), cases[f"n={JUB_N}"],
+               20 if name == "jub_add" else 10, work=work)
+        out[name] = {"cases": cases, "sign_n_ms": sign_ms, "twin_wide_s": twin_s}
+    out["jub_add"]["n1_ms"] = device_ms(torch, lambda: jub.jub_add(head(p, 1), head(q, 1)), 50,
+                                        KERNEL_SYMBOLS["jub_add"])
+    print(f"jub_add: n=1 {out['jub_add']['n1_ms']:.5f} ms on the device", flush=True)
+    return out
 
 
 def kernel_of(mangled: str) -> str:
@@ -709,6 +896,11 @@ def check_kernels(torch, dev) -> dict:
         print(f"{name}: n={n8} {ms8:.4f} ms on the device (profiler); bound {b_ms:.4f} ms "
               f"by {b_by}", flush=True)
     results["g2_add"]["sass"] = sass_imad(build, "g2", "g2_add_kernel")
+
+    # K1's BabyJubJub add and ladder on edge rows and the 8-torsion at 1 to
+    # 2^16 lanes; timed at the verify's 4096 and the sign's 8192
+    for name, extra in jub_kernel_checks(torch, dev, gen, record).items():
+        results[name].update(extra)
 
     # K4 at the deposit's 4096 hashes; first rows: every pair of 0, 1, p − 1,
     # p − 2; twin over 4097 rows once, the kernel at each width against it
@@ -1015,7 +1207,9 @@ def pool_builder(pool, note, index, recipient):
 VOUCHER_BATCH = 4096        # the sequencer's EdDSA batch (bench.py verifies 2^12)
 VOUCHER_CHECKED = 64        # signatures held against the host oracle
 VERIFY_REPS = 3
-VOUCHER_KERNELS = ("mont_mul", "mod_add", "mod_sub", "poseidon_hash2")
+VOUCHER_K1_K4 = ("mont_mul", "mod_add", "mod_sub", "poseidon_hash2")
+VOUCHER_KERNELS = VOUCHER_K1_K4 + ("jub_add", "jub_scalar_mul")
+K1 = ("mont_mul", "mod_add", "mod_sub")
 VOUCHER_STACKS = (1, 2, 3, 4, 6, 8, 36)    # K1 operands of the EdDSA batch, in batches
 
 
@@ -1068,6 +1262,9 @@ def eddsa_batch(torch, dev, priv: int, pub) -> tuple[dict, tuple]:
                             if v > before[k]}
     if again != sigs:
         fail("eddsa_sign_batch gave different signatures for the same inputs")
+    if out["sign_launches"].get("jub_add") != 31:
+        fail(f"a warm eddsa_sign_batch made {out['sign_launches'].get('jub_add')} jub_add "
+             "launches, not the fixed-base sum's 31")
     for i in rng.sample(range(n), VOUCHER_CHECKED):
         if sigs[i] != oeddsa.sign(priv, rand[i], msgs[i]):
             fail(f"eddsa_sign_batch lane {i} differs from oracle.eddsa.sign")
@@ -1092,6 +1289,14 @@ def eddsa_batch(torch, dev, priv: int, pub) -> tuple[dict, tuple]:
                               if v > before[k]}
     if not bool(ok.all()):
         fail(f"eddsa_verify rejected {int((~ok).sum())} of {n} valid signatures")
+    got = tuple(out["verify_launches"].get(k, 0) for k in ("jub_scalar_mul", "jub_add"))
+    if got != (1, 32):
+        fail(f"eddsa_verify made {got} (jub_scalar_mul, jub_add) launches, not (1, 32)")
+    out["verify_k1"] = {k: out["verify_launches"].get(k, 0) for k in K1}
+    out["sign_k1"] = {k: out["sign_launches"].get(k, 0) for k in K1}
+    print(f"eddsa K1 launches by kernel: verify {json.dumps(out['verify_k1'])} "
+          f"({sum(out['verify_k1'].values())}), warm sign {json.dumps(out['sign_k1'])} "
+          f"({sum(out['sign_k1'].values())})", flush=True)
     out["verify_s"] = []
     for _ in range(VERIFY_REPS):
         t = time.time()
@@ -1174,12 +1379,27 @@ def sequencer_ops(torch, dev, pool, entries: dict) -> dict:
         fail("withdraw_batch accepted a nullifier twice in one batch")
     if (pool.nullifiers, pool.balances) != (spent, balances):
         fail("withdraw_batch changed the pool's state on a rejected batch")
+    before = kernels.launch_counts()
     t = time.time()
     vouchers = pool.withdraw_batch(reqs)
     out["withdraw_batch_s"] = time.time() - t
+    mid = kernels.launch_counts()
     t = time.time()
     ok = pool.verify_vouchers_batch(vouchers)
+    torch.cuda.synchronize()
     out["verify_vouchers_s"] = time.time() - t
+    after = kernels.launch_counts()
+    out["withdraw_batch_launches"] = {k: v - before[k] for k, v in mid.items() if v > before[k]}
+    out["verify_vouchers_launches"] = {k: v - mid[k] for k, v in after.items() if v > mid[k]}
+    print("pool: launches of withdraw_batch " + json.dumps(out["withdraw_batch_launches"])
+          + ", of verify_vouchers_batch " + json.dumps(out["verify_vouchers_launches"]),
+          flush=True)
+    for name, counts in (("withdraw_batch", out["withdraw_batch_launches"]),
+                         ("verify_vouchers_batch", out["verify_vouchers_launches"])):
+        if not counts.get("jub_add"):
+            fail(f"{name} launched no jub_add")
+    if not out["verify_vouchers_launches"].get("jub_scalar_mul"):
+        fail("verify_vouchers_batch launched no jub_scalar_mul")
     if not ok.all():
         fail("verify_vouchers_batch rejected a voucher of withdraw_batch")
     chain = settings().chain_id
@@ -1254,7 +1474,7 @@ def voucher_path_checks(torch, args) -> tuple[dict, set]:
     """K1 and K4 against their plain versions at every width the EdDSA
     batch launches them, on the verify batch's own operands (A, M, R: 4096
     Montgomery Fr rows each): K1's product, add and subtract on k stacked
-    batches for each k in VOUCHER_STACKS (the Edwards formulas' stacked
+    batches for each k in VOUCHER_STACKS (`to_affine`'s and `eq`'s stacked
     operands, the sign's 2n lanes, the t = 6 Poseidon's state and MDS
     products), and on one 16-limb constant broadcast over 4096 and 8192 rows
     (the kernels' step-0 operand: every mul_const and to_mont); K4 on
@@ -1306,11 +1526,17 @@ def voucher_phase(torch, dev, pool, entries: dict) -> dict:
                                   for _ in range(2)), "before the voucher phase")
     kernels.reset_launches()
     out = {"host_call_us": calls}
-    out["eddsa"], args = eddsa_batch(torch, dev, pool._seq_priv, pool.seq_pub)
-    widths = kernels.launch_widths()
-    out["eddsa_widths"] = {k: widths[k] for k in VOUCHER_KERNELS}
-    out["pool"] = sequencer_ops(torch, dev, pool, entries)
+    with kernels.capture_operands() as kept:
+        out["eddsa"], args = eddsa_batch(torch, dev, pool._seq_priv, pool.seq_pub)
+        widths = kernels.launch_widths()
+        out["eddsa_widths"] = {k: widths[k] for k in VOUCHER_KERNELS}
+        out["pool"] = sequencer_ops(torch, dev, pool, entries)
     out["launches"] = kernels.launch_counts()
+    # every (kernel, width) of the phase, held against its plain version
+    # on its own operands after the last profiled measurement (mesh_checks)
+    out["capture"] = {"phase": "vouchers", "path_checks": {}, "kept": {"voucher phase": (
+        {k: copies(torch, a, torch.device("cpu")) for k, a in kept.items()},
+        kernels.launch_widths())}}
     print("vouchers and the sequencer: launches " + json.dumps(nonzero(out["launches"]))
           + "; the EdDSA batch's by width {width: [launches, items]}: "
           + json.dumps(out["eddsa_widths"]), flush=True)
@@ -1318,7 +1544,8 @@ def voucher_phase(torch, dev, pool, entries: dict) -> dict:
         if out["launches"][name] <= 0:
             fail(f"kernel {name} was not launched on the voucher path")
     out["path_checks"], held = voucher_path_checks(torch, args)
-    unheld = sorted({(k, int(w)) for k, ws in out["eddsa_widths"].items() for w in ws} - held)
+    unheld = sorted({(k, int(w)) for k, ws in out["eddsa_widths"].items() for w in ws
+                     if k in VOUCHER_K1_K4} - held)
     if unheld:
         fail(f"EdDSA batch: kernel widths not held against their plain versions: {unheld}")
     return out
@@ -1841,7 +2068,7 @@ def copies(torch, args, dev):
 # kernels whose every output row is a function of the same row of each
 # operand, so one plain call over several launches' rows checks them all
 ROW_KERNELS = ("mont_mul", "mod_add", "mod_sub", "g1_add", "g1_double", "g2_add", "g2_double",
-               "poseidon_hash2", "mimc_hash2")
+               "jub_add", "jub_scalar_mul", "poseidon_hash2", "mimc_hash2")
 
 
 def tensors_of(torch, x) -> list:
@@ -1914,7 +2141,7 @@ def mesh_path_checks(torch, stage: str, kept: dict, widths: dict, held: set,
             errs[case] = max_abs_err(torch, tuple(tensors_of(torch, got)),
                                      tuple(w[i] for w in want))
         torch.cuda.synchronize()
-        CHECK_S[f"{' '.join(key)} plain, {len(items)} widths"] = time.time() - t
+        CHECK_S[f"{' '.join(map(str, key))} plain, {len(items)} widths"] = time.time() - t
     print(f"{phase} {stage}: {len(errs)} (kernel, width) pairs against their plain versions on "
           f"the stage's operands ({len(kept) - len(errs)} held by an earlier stage), max |diff|: "
           + json.dumps(dict(sorted(errs.items()))), flush=True)
@@ -2306,6 +2533,8 @@ def main() -> int:
     surface["s"] = time.time() - t
     mesh_checks(torch, mesh_prove, meshp)
     mesh_checks(torch, surface)         # its own (kernel, width) pairs, on its operands
+    voucher_capture = vouchers.pop("capture")
+    mesh_checks(torch, voucher_capture)     # the voucher phase's, on its operands
     surface_launches = {k: sum(c.get(k, 0) for c in surface["launches"].values())
                         for k in KERNELS}
     print(f"surface: {surface['s']:.1f} s before its twin checks; launches by op "
@@ -2318,10 +2547,12 @@ def main() -> int:
 
     # each kernel's launches on the path it belongs to: K1–K5 (and K1's G2
     # add and double) on the depth-16 round trip, K7 on the 2^20 NTT, K6 on
-    # the 2^20-leaf tree
+    # the 2^20-leaf tree, K1's BabyJubJub add and ladder on the voucher phase
     launches = dict(trip["launches"])
     launches["ntt_cols"] = nttp["launches"]["ntt_cols"]
     launches["mimc_hash2"] = mimcp["launches"]["mimc_hash2"]
+    for name in ("jub_add", "jub_scalar_mul"):      # their path: the voucher phase
+        launches[name] = vouchers["launches"][name]
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": kern[name]["max_abs_err"],
@@ -2337,6 +2568,10 @@ def main() -> int:
         "kernel_checks": {k: {f: kern[k][f] for f in ("cases", "sass")}
                           for k in ("g1_add", "g2_add", "poseidon_hash2")},
         "g2_double_cases": kern["g2_double"]["cases"],
+        "jub_checks": {k: {f: kern[k][f] for f in ("cases", "sign_n_ms", "twin_wide_s")}
+                       for k in ("jub_add", "jub_scalar_mul")},
+        "jub_add_n1_ms": kern["jub_add"]["n1_ms"],
+        "voucher_twin_checks": voucher_capture["path_checks"],
         "g1_double_checks": {k: kern["g1_double"][k]
                              for k in ("cases", "ms_by_n", "n2_18")},
         "ntt_cols_checks": {k: kern["ntt_cols"][k] for k in ("cases", "shared_ops")},

@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""Times the port's batched EdDSA verify on one GPU with two forms of the
-BabyJubJub projective add and double, in turns in one process:
+"""Times the port's batched EdDSA verify on one GPU with three forms of the
+BabyJubJub projective add and scalar multiplication, in turns in one
+process:
 
-* "plain": one field operation a call, as the reference writes them
-  (owshen_tpu/curves/babyjubjub.py `add`, `double`): 20 and 15 K1 launches;
-* "stacked": the products and sums of a formula that do not wait on each
-  other stacked on a new leading axis and sent through one K1 launch: 8 and
-  7 K1 launches, plus one torch.stack copy for each stacked operand.
+* "plain": K1-composed, one field operation a call, as the reference writes
+  them (owshen_tpu/curves/babyjubjub.py `add`, `double`, a 254-step ladder
+  of double, add and select): 20 and 15 K1 launches an add and a double;
+* "stacked": K1-composed, the products and sums of a formula that do not
+  wait on each other stacked on a new leading axis and sent through one K1
+  launch (8 and 7 K1 launches, plus one torch.stack copy for each stacked
+  operand), the same ladder;
+* "kernels": the port as it is, K1's Edwards add (`jub_add`) and its ladder
+  (`jub_scalar_mul`, one launch for all 254 steps).
 
     python3 edwards_forms.py [--n 4096] [--reps 3] [--rounds 2]
 
 Signs n distinct seeded messages with eddsa_sign_batch, then verifies them
-with each form in the order plain, stacked, stacked, plain (per round),
-reps timed batches a turn after one untimed one.  Both forms must accept
-every lane.  Prints the card's name and power limit, each turn's times
-(host clock, synchronised) and K1 launches per verify, then one JSON line.
-Exits non-zero without a CUDA device.
+with each form in the order plain, stacked, kernels, kernels, stacked,
+plain (per round), reps timed batches a turn after one untimed one.  Every
+form must accept every lane.  Prints the card's name and power limit, each
+turn's times (host clock, synchronised) and launches per verify, then one
+JSON line.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -96,6 +101,22 @@ def stacked_forms(torch, F, A, D):
     return add, double
 
 
+def composed_ladder(torch, F, add, double):
+    """scalar_mul_int as a loop of 254 K1-composed steps (the port's before
+    its ladder kernel): a double, an add and a torch.where a bit."""
+    from owshen_tpu_torch.curves import babyjubjub as jub
+
+    def scalar_mul_int(p, scalars):
+        bits = F.to_bits_le(scalars, 254).movedim(-1, 0).flip(0)
+        acc = jub.identity_like(p[0])
+        for bit in bits:
+            acc = double(acc)
+            acc = jub.select(bit != 0, add(acc, p), acc)
+        return acc
+
+    return scalar_mul_int
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=4096)
@@ -128,27 +149,29 @@ def main() -> int:
             (FR.encode([r[0] for r, _ in sigs], device=dev),
              FR.encode([r[1] for r, _ in sigs], device=dev)),
             ints_to_tensor([s for _, s in sigs], dev))
-    forms = {"plain": plain_forms(FR, jub.A, jub.D),
-             "stacked": stacked_forms(torch, FR, jub.A, jub.D)}
+    forms = {"kernels": (jub.add, jub.scalar_mul_int)}
+    for name, (add, double) in (("plain", plain_forms(FR, jub.A, jub.D)),
+                                ("stacked", stacked_forms(torch, FR, jub.A, jub.D))):
+        forms[name] = (add, composed_ladder(torch, FR, add, double))
     times = {name: [] for name in forms}
-    k1 = {}
+    launches = {}
     for _ in range(opts.rounds):
-        for name in ("plain", "stacked", "stacked", "plain"):
-            jub.add, jub.double = forms[name]        # scalar_mul and JUB_OPS call these
+        for name in ("plain", "stacked", "kernels", "kernels", "stacked", "plain"):
+            jub.add, jub.scalar_mul_int = forms[name]   # eddsa_verify and JUB_OPS call these
             before = kernels.launch_counts()
             if not bool(jub.eddsa_verify(*args).all()):
                 print(f"the {name} form rejected a valid signature", file=sys.stderr)
                 return 1
-            k1[name] = sum(v - before[k] for k, v in kernels.launch_counts().items()
-                           if k in ("mont_mul", "mod_add", "mod_sub"))
+            launches[name] = {k: v - before[k] for k, v in kernels.launch_counts().items()
+                              if v > before[k]}
             for _ in range(opts.reps):
                 t = time.time()
                 jub.eddsa_verify(*args)
                 torch.cuda.synchronize()
                 times[name].append(time.time() - t)
             print(f"{name}: {json.dumps([round(x, 4) for x in times[name][-opts.reps:]])} s a "
-                  f"verify of {n}, {k1[name]} K1 launches", flush=True)
-    line = {"n": n, "card": smi, "k1_launches": k1, "verify_s": times,
+                  f"verify of {n}, launches {json.dumps(launches[name])}", flush=True)
+    line = {"n": n, "card": smi, "launches": launches, "verify_s": times,
             "median_s": {k: sorted(v)[len(v) // 2] for k, v in times.items()}}
     print(json.dumps(line), flush=True)
     return 0

@@ -5,17 +5,18 @@ babyjubjub/mod.rs).
 * Points are projective (X : Y : Z) tuples of Montgomery Fr tensors.  The
   projective add and double (mod.rs:118-172) are complete on BabyJubJub (a
   is a square in Fr, d is not), so one branchless path serves every input.
-* Every product, add and subtract is a K1 launch on the card (the plain
-  twin on the CPU).  The path is bound by launches, so the products of a
-  formula that do not wait on each other are stacked on a new leading axis
-  and go through one launch: the same field operations on the same values
-  as the reference's, in fewer launches.  The 5-input Poseidon challenge
-  hash composes the t = 6 permutation from K1 launches, the 2-input nonce
-  hash is one K4 launch.
-* Scalar multiplication is a 254-step double-and-add over the batch, its
-  select a `torch.where` on the card (no host sync in the ladder); fixed-base
-  products (s·B, r·B, a·B) go through `fixed_base.jub_fixed_base`: one row
-  gather and 31 batched adds.
+* The add is one launch of K1's Edwards add (kernels/jub.py `jub_add`);
+  scalar multiplication is one launch of its ladder (`jub_scalar_mul`):
+  every step's double, add and select in registers, a scalar per lane, MSB
+  first.  Fixed-base products (s·B, r·B, a·B) go through
+  `fixed_base.jub_fixed_base`: one row gather and 31 batched adds.  On CPU
+  tensors both run their plain twins.
+* The rest is K1 launches on the card (the plain twin on the CPU): the
+  double (`JUB_OPS.double`, which no card path calls), `to_affine`, `eq`,
+  `on_curve_affine`, with the products of a formula that do not wait on each
+  other stacked on a new leading axis into one launch.  The 5-input Poseidon
+  challenge hash composes the t = 6 permutation from K1 launches, the
+  2-input nonce hash is one K4 launch.
 * EdDSA follows the reference (mod.rs:202-236): h = H(R.x, R.y, A.x, A.y, M),
   accept iff s·B == R + h·A.
 """
@@ -26,6 +27,7 @@ import torch
 
 from ..config import resolve_device
 from ..fields.field import FR, ints_to_tensor, tensor_to_ints
+from ..kernels import jub as jub_kernels
 from ..ops.hash import poseidon
 
 F = FR
@@ -77,21 +79,9 @@ def _subs(xs, ys):
 
 
 def add(p, q):
-    """Complete projective twisted-Edwards addition (mod.rs:118-142): the
-    reference's products and sums, those that do not wait on each other
-    stacked into one launch (8 K1 launches for its 13 products and 7 adds)."""
-    X1, Y1, Z1 = p
-    X2, Y2, Z2 = q
-    a, c, d = _muls((Z1, X1, Y1), (Z2, X2, Y2))
-    s1, s2, cpd = _adds((X1, X2, c), (Y1, Y2, d))
-    k_a = F.const(A, device=c.device).expand_as(c)
-    b, cd, u, c_a = _muls((a, c, s1, c), (a, d, s2, k_a))     # b = a², c·A
-    e = F.mul_const(cd, D)
-    f, x_part, d_ca = _subs((b, u, d), (e, cpd, c_a))
-    g = F.add(b, e)
-    af, ag, Z3 = _muls((a, a, f), (f, g, g))
-    X3, Y3 = _muls((af, ag), (x_part, d_ca))
-    return (X3, Y3, Z3)
+    """Complete projective twisted-Edwards addition (mod.rs:118-142): one
+    `jub_add` launch."""
+    return jub_kernels.jub_add(p, q)
 
 
 def double(p):
@@ -151,19 +141,25 @@ class _JubOracle:
 
 
 def scalar_mul(p, bits):
-    """bits: int[n_bits, ...] MSB-first (the reference walks
-    to_le_bits().rev(), mod.rs:71): per bit a double, an add and a select."""
-    acc = identity_like(p[0])
-    for bit in bits:
-        acc = double(acc)
-        acc = select(bit != 0, add(acc, p), acc)
-    return acc
+    """bits: int[n_bits, ...] MSB-first, n_bits ≤ 256 (the reference walks
+    to_le_bits().rev(), mod.rs:71): per bit a double, and an add where the
+    bit is set.  The bits are packed into canonical limbs on their device
+    and the ladder runs in one `jub_scalar_mul` launch."""
+    n_bits = bits.shape[0]
+    if n_bits > jub_kernels.MAX_BITS:
+        raise ValueError(f"{n_bits} bits: the ladder takes at most {jub_kernels.MAX_BITS}")
+    lsb = (bits != 0).flip(0).to(torch.int32)
+    lsb = torch.cat([lsb, lsb.new_zeros((jub_kernels.MAX_BITS - n_bits,) + lsb.shape[1:])])
+    weights = (1 << torch.arange(16, dtype=torch.int32, device=lsb.device)).view(
+        (1, 16) + (1,) * (lsb.dim() - 1))
+    limbs = (lsb.view((16, 16) + lsb.shape[1:]) * weights).sum(1, dtype=torch.int32)
+    return jub_kernels.jub_scalar_mul(p, limbs.movedim(0, -1), n_bits)
 
 
 def scalar_mul_int(p, scalars_canonical):
-    """scalars: canonical (non-Montgomery) limbs int32[..., 16], below 2^254."""
-    bits = F.to_bits_le(scalars_canonical, 254)             # (..., 254)
-    return scalar_mul(p, bits.movedim(-1, 0).flip(0))      # MSB first, leading axis
+    """scalars: canonical (non-Montgomery) limbs int32[..., 16]; bits 253 … 0
+    of each, one `jub_scalar_mul` launch."""
+    return jub_kernels.jub_scalar_mul(p, scalars_canonical, 254)
 
 
 def to_affine(p):

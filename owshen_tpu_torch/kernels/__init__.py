@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels of the port (K1–K7, with K1's G2 point
-operations) and their wrappers.
+"""Hand-written CUDA kernels of the port (K1–K7, with K1's G2 and
+BabyJubJub point operations) and their wrappers.
 
 Every wrapper launches its kernel on CUDA tensors (or raises) and runs its
 plain PyTorch twin on CPU tensors; `launch_counts()` reads how often each
@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import contextlib
 
-from . import field_ops, g1, g2, mimc, ntt, poseidon
+from . import field_ops, g1, g2, jub, mimc, ntt, poseidon
 
 WRAPPERS = {
     "mont_mul": field_ops.mont_mul,
@@ -24,6 +24,8 @@ WRAPPERS = {
     "g1_double": g1.g1_double,
     "g2_add": g2.g2_add,
     "g2_double": g2.g2_double,
+    "jub_add": jub.jub_add,
+    "jub_scalar_mul": jub.jub_scalar_mul,
     "poseidon_hash2": poseidon.poseidon_hash2,
     "ntt_butterfly": ntt.butterfly_stage,
     "mimc_hash2": mimc.mimc_hash2,
@@ -38,6 +40,8 @@ PLAIN = {
     "g1_double": g1.g1_double_plain,
     "g2_add": g2.g2_add_plain,
     "g2_double": g2.g2_double_plain,
+    "jub_add": jub.jub_add_plain,
+    "jub_scalar_mul": jub.jub_scalar_mul_plain,
     "poseidon_hash2": poseidon.poseidon_hash2_plain,
     "ntt_butterfly": ntt.butterfly_stage_plain,
     "mimc_hash2": mimc.mimc_hash2_plain,

@@ -26,7 +26,7 @@ import numpy as np
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("field_ops", "g1", "g2", "poseidon", "ntt", "mimc")
+SOURCES = ("field_ops", "g1", "g2", "jub", "poseidon", "ntt", "mimc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,6 +47,11 @@ SIGNATURES = {
         "g2_add_launch": (_P,) * 9 + (_LL, _P),
         "g2_double_launch": (_P,) * 6 + (_LL, _P),
         "g2_consts_upload": (_P,),
+    },
+    "jub": {
+        "jub_add_launch": (_P,) * 9 + (_LL, _P),
+        "jub_scalar_mul_launch": (_P,) * 7 + (_LL, _I, _P),
+        "jub_consts_upload": (_P,),
     },
     "poseidon": {
         "poseidon2_launch": (_P, _P, _P, _LL, _P),
@@ -179,6 +184,11 @@ class _Libraries:
 
                 b3 = np.asarray(b3_mont_words(), np.uint32)
                 check(lib.g2_consts_upload(b3.ctypes.data), "g2: b3")
+            if name == "jub":
+                from .jub import jub_consts_words
+
+                words = np.asarray(jub_consts_words(), np.uint32)
+                check(lib.jub_consts_upload(words.ctypes.data), "jub: 1, A and D")
             if name == "poseidon":
                 c, m, n_rounds = _poseidon_consts_words()
                 check(lib.poseidon_consts_upload(c.ctypes.data, m.ctypes.data, n_rounds),
