@@ -1,0 +1,3 @@
+"""The card's idle share of the traced window in the NTT cell."""
+
+from benchmark.readers import device_idle_pct as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""Device kernels on the profiler's timeline per 2^22-point MSM."""
+
+from benchmark.readers import kernels_per_op as read  # noqa: F401
