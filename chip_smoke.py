@@ -1213,26 +1213,6 @@ K1 = ("mont_mul", "mod_add", "mod_sub")
 VOUCHER_STACKS = (1, 2, 3, 4, 6, 8, 36)    # K1 operands of the EdDSA batch, in batches
 
 
-def host_call_us(torch, x, y, when: str) -> dict:
-    """Host microseconds per call of a K1 product and of a PyTorch stack of
-    the same operands, each issued 1000 times before one sync: the launch
-    costs that bound a path of many small launches."""
-    from owshen_tpu_torch.fields.field import FR
-
-    out = {}
-    for name, fn in (("k1_mul", lambda: FR.mul(x, y)), ("stack", lambda: torch.stack((x, y)))):
-        fn()
-        torch.cuda.synchronize()
-        t = time.time()
-        for _ in range(1000):
-            fn()
-        torch.cuda.synchronize()
-        out[name] = (time.time() - t) * 1e3
-    print(f"host per call at {x.shape[0]} rows {when}: K1 product {out['k1_mul']:.1f} us, "
-          f"torch.stack of two {out['stack']:.1f} us", flush=True)
-    return out
-
-
 def eddsa_batch(torch, dev, priv: int, pub) -> tuple[dict, tuple]:
     """4096 distinct seeded messages signed by the sequencer key in one
     eddsa_sign_batch, 64 seeded picks against the host oracle, all verified
@@ -1519,13 +1499,9 @@ def voucher_path_checks(torch, args) -> tuple[dict, set]:
 
 def voucher_phase(torch, dev, pool, entries: dict) -> dict:
     from owshen_tpu_torch import kernels
-    from owshen_tpu_torch.oracle.field import P_FR
 
-    gen = torch.Generator().manual_seed(11)
-    calls = host_call_us(torch, *(rand_field(torch, gen, P_FR, VOUCHER_BATCH, dev)
-                                  for _ in range(2)), "before the voucher phase")
     kernels.reset_launches()
-    out = {"host_call_us": calls}
+    out = {}
     with kernels.capture_operands() as kept:
         out["eddsa"], args = eddsa_batch(torch, dev, pool._seq_priv, pool.seq_pub)
         widths = kernels.launch_widths()

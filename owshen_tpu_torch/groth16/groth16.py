@@ -37,6 +37,7 @@ from ..ops.msm import _pad_identity, msm, msm_sorted
 from ..ops.msm_fixed import FixedMsm, FixedMsmGroup
 from ..ops.ntt import NttDomain
 from ..oracle import curve as ocurve
+from ..runtime.metrics import metrics
 from .pairing import pairing_product_is_one
 from .r1cs import Builder
 
@@ -362,27 +363,32 @@ def _prove_fixed(pk: ProvingKey, w_mont: torch.Tensor, r: int, s: int,
     """`_prove_core`'s algebra over the fixed tables, its five G1 MSMs
     stacked into one gather and one batched fold (`mul_multi`) and s·w,
     r·w taken on the card."""
-    fx = _fixed_tables(pk)
-    dev = pk.device
-    n, n_pub = fx.n, pk.n_pub
-    slots = (0, 0, 1, 2, 3) if fx.has_k else (0, 0, 1, 2)
-    if w_mont.shape[0] != n:
-        w_mont = torch.cat([w_mont, torch.zeros((n - w_mont.shape[0], FR.L),
-                                                dtype=torch.int32, device=dev)])
-    sr = FR.encode([s, r], device=dev)[:, None]                  # (2, 1, 16)
-    w_sc = FR.from_mont(w_mont)                                   # (n, 16)
-    sw, rw = FR.from_mont(FR.mul(w_mont[None], sr))               # (2, n, 16)
-    h_pad = torch.zeros((n, FR.L), dtype=torch.int32, device=dev)
-    h_pad[: h_sc.shape[0]] = h_sc
-    sets = [w_sc, sw, rw]
-    if fx.has_k:
-        sets.append(torch.cat([w_sc[n_pub:], torch.zeros((n_pub, FR.L), dtype=torch.int32,
-                                                           device=dev)]))
-    sets.append(h_pad)
-    g1s = fx.g1.mul_multi(torch.stack(sets), slots)               # (S, ...) sums
+    with metrics.timer("groth16.msm"):
+        fx = _fixed_tables(pk)
+        dev = pk.device
+        n, n_pub = fx.n, pk.n_pub
+        slots = (0, 0, 1, 2, 3) if fx.has_k else (0, 0, 1, 2)
+        if w_mont.shape[0] != n:
+            w_mont = torch.cat([w_mont, torch.zeros((n - w_mont.shape[0], FR.L),
+                                                    dtype=torch.int32, device=dev)])
+        sr = FR.encode([s, r], device=dev)[:, None]                  # (2, 1, 16)
+        w_sc = FR.from_mont(w_mont)                                   # (n, 16)
+        sw, rw = FR.from_mont(FR.mul(w_mont[None], sr))               # (2, n, 16)
+        h_pad = torch.zeros((n, FR.L), dtype=torch.int32, device=dev)
+        h_pad[: h_sc.shape[0]] = h_sc
+        sets = [w_sc, sw, rw]
+        if fx.has_k:
+            sets.append(torch.cat([w_sc[n_pub:], torch.zeros((n_pub, FR.L), dtype=torch.int32,
+                                                               device=dev)]))
+        sets.append(h_pad)
+        g1s = fx.g1.mul_multi(torch.stack(sets), slots)               # (S, ...) sums
+        b2_w = fx.b2.mul(w_sc)
+    with metrics.timer("groth16.tails"):
+        tails = _tails(pk, r, s)
     pick = lambda i: tuple(a[i:i + 1] for a in g1s)  # noqa: E731
-    return _assemble(pick(0), pick(1), pick(2), pick(3) if fx.has_k else None,
-                     pick(len(slots) - 1), fx.b2.mul(w_sc), *_tails(pk, r, s))
+    with metrics.timer("groth16.to_host"):
+        return _assemble(pick(0), pick(1), pick(2), pick(3) if fx.has_k else None,
+                         pick(len(slots) - 1), b2_w, *tails)
 
 
 def _prove_mesh(pk: ProvingKey, w: list[int], r: int, s: int, h_sc: torch.Tensor, mesh,
@@ -519,17 +525,22 @@ def prove(pk: ProvingKey, builder: Builder, seed: bytes | None = None,
     dev = resolve_device(device)
     if pk.device != dev:
         raise ValueError(f"proving key lives on {pk.device}, prove asked for {dev}")
-    w = builder.witness()
-    rs = _rand_stream((seed if seed is not None else os.urandom(32)) + b"|rs")
-    r, s = next(rs), next(rs)
+    with metrics.timer("groth16.witness"):
+        w = builder.witness()
+        rs = _rand_stream((seed if seed is not None else os.urandom(32)) + b"|rs")
+        r, s = next(rs), next(rs)
     n = pk.n_domain
     dom = _domain(n.bit_length() - 1)
-    mats = _device_mats(builder.compiled(n), dev)
-    w_mont = FR.encode(w, device=dev)
+    with metrics.timer("groth16.r1cs"):
+        mats = _device_mats(builder.compiled(n), dev)
+    with metrics.timer("groth16.h"):
+        w_mont = FR.encode(w, device=dev)
+        if mesh is not None:
+            h_sc = _h_scalars_dist(mesh, dom, w_mont, mats)[: n - 1]
+        else:
+            h_sc = _h_scalars_device(dom, w_mont, mats)[: n - 1]
     if mesh is not None:
-        h_sc = _h_scalars_dist(mesh, dom, w_mont, mats)[: n - 1]
         return _prove_mesh(pk, w, r, s, h_sc, mesh, msm_c, msm_lanes)
-    h_sc = _h_scalars_device(dom, w_mont, mats)[: n - 1]
     if engine == "fixed":
         return _prove_fixed(pk, w_mont, r, s, h_sc)
     return _prove_legacy(pk, w, r, s, h_sc, engine, msm_c, msm_lanes)

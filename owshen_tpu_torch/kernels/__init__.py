@@ -4,8 +4,11 @@ BabyJubJub point operations) and their wrappers.
 Every wrapper launches its kernel on CUDA tensors (or raises) and runs its
 plain PyTorch twin on CPU tensors; `launch_counts()` reads how often each
 kernel was launched, `launch_widths()` how often and over how many items
-at each width (bucketed by the power of two at or above it), and
-`reset_launches()` sets both to zero.  Within `capture_operands()` each
+at each width (bucketed by the power of two at or above it),
+`launch_host_ns()` the host's time in each wrapper's launching calls, from
+entry to return (the CPU twins count nothing), and `reset_launches()` sets
+all three to zero.  The registry reports the total host time as the timer
+`kernels.launch_host`, one count a launch.  Within `capture_operands()` each
 wrapper also keeps a copy of its first operands at each width, which
 `PLAIN[name]` takes as the wrapper does: a path's kernels can then be held
 against their plain twins on the path's own operands."""
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 
+from ..runtime.metrics import metrics
 from . import field_ops, g1, g2, jub, mimc, ntt, poseidon
 
 WRAPPERS = {
@@ -50,8 +54,7 @@ PLAIN = {
 
 
 def reset_launches() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches, fn.widths = 0, {}
+    field_ops.zero_counts(*WRAPPERS.values())
 
 
 def launch_counts() -> dict[str, int]:
@@ -61,6 +64,14 @@ def launch_counts() -> dict[str, int]:
 def launch_widths() -> dict[str, dict[int, list[int]]]:
     return {name: {w: list(v) for w, v in sorted(fn.widths.items())}
             for name, fn in WRAPPERS.items()}
+
+
+def launch_host_ns() -> dict[str, int]:
+    return {name: fn.host_ns for name, fn in WRAPPERS.items()}
+
+
+metrics.attach_timer("kernels.launch_host", lambda: (
+    sum(launch_counts().values()), sum(launch_host_ns().values()) / 1e9))
 
 
 @contextlib.contextmanager

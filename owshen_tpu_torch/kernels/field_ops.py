@@ -6,7 +6,8 @@ other, and return the canonical result.  On a CUDA tensor each launches
 csrc/field_ops.cu (one thread per element) or raises; on a CPU tensor it
 runs the plain PyTorch twin in this module, which the tests compare with
 the JAX package.  Each wrapper counts its kernel launches in `.launches`,
-and in `.widths` by width (`count_launch`).
+in `.widths` by width, and its host time per launch in `.host_ns`
+(`count_launch`).
 
 The plain twins work limb-major on int64 (16, N) and run on any device.
 Over more than `SMALL_N` columns the Montgomery product scans the
@@ -23,6 +24,7 @@ a·b·2^-256 mod p.
 from __future__ import annotations
 
 import functools
+import time
 
 import numpy as np
 import torch
@@ -278,13 +280,22 @@ def kernel_operand(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def count_launch(wrapper, n: int) -> None:
-    """Count one launch of `wrapper`'s kernel over n items: `.launches`, and
-    `.widths[w] = [launches, items]` for the power of two w at or above n."""
+def count_launch(wrapper, n: int, t0: int) -> None:
+    """Count one launch of `wrapper`'s kernel over n items: `.launches`,
+    `.widths[w] = [launches, items]` for the power of two w at or above n,
+    and in `.host_ns` the host's time since the wrapper's entry at t0
+    (`time.perf_counter_ns()`)."""
     wrapper.launches += 1
     bucket = wrapper.widths.setdefault(1 << max(0, n - 1).bit_length(), [0, 0])
     bucket[0] += 1
     bucket[1] += n
+    wrapper.host_ns += time.perf_counter_ns() - t0
+
+
+def zero_counts(*wrappers) -> None:
+    """Set each wrapper's launch counts and host time to zero."""
+    for fn in wrappers:
+        fn.launches, fn.widths, fn.host_ns = 0, {}, 0
 
 
 # {(wrapper, width): operands} while kernels.capture_operands() is on, else None
@@ -311,7 +322,7 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch_binary(entry: str, wrapper, a, b, field: str) -> torch.Tensor:
+def _launch_binary(entry: str, wrapper, a, b, field: str, t0: int) -> torch.Tensor:
     shape = broadcast_shape(a.shape, b.shape)
     n = 1
     for d in shape[:-1]:
@@ -331,30 +342,32 @@ def _launch_binary(entry: str, wrapper, a, b, field: str) -> torch.Tensor:
                              n, steps[0], steps[1], FIELD_INDEX[field],
                              stream_handle(a.device))
     build.check(rc, entry)
-    count_launch(wrapper, n)
+    count_launch(wrapper, n, t0)
     return out.reshape(shape)
 
 
 def mont_mul(a: torch.Tensor, b: torch.Tensor, field: str) -> torch.Tensor:
     """Montgomery product a·b·2^-256 mod p (K1)."""
+    t0 = time.perf_counter_ns()
     if on_cpu(a, b):
         return mont_mul_plain(a, b, field)
-    return _launch_binary("field_mul_launch", mont_mul, a, b, field)
+    return _launch_binary("field_mul_launch", mont_mul, a, b, field, t0)
 
 
 def mod_add(a: torch.Tensor, b: torch.Tensor, field: str) -> torch.Tensor:
     """(a + b) mod p (K1)."""
+    t0 = time.perf_counter_ns()
     if on_cpu(a, b):
         return mod_add_plain(a, b, field)
-    return _launch_binary("field_add_launch", mod_add, a, b, field)
+    return _launch_binary("field_add_launch", mod_add, a, b, field, t0)
 
 
 def mod_sub(a: torch.Tensor, b: torch.Tensor, field: str) -> torch.Tensor:
     """(a − b) mod p (K1)."""
+    t0 = time.perf_counter_ns()
     if on_cpu(a, b):
         return mod_sub_plain(a, b, field)
-    return _launch_binary("field_sub_launch", mod_sub, a, b, field)
+    return _launch_binary("field_sub_launch", mod_sub, a, b, field, t0)
 
 
-for _wrapper in (mont_mul, mod_add, mod_sub):
-    _wrapper.launches, _wrapper.widths = 0, {}
+zero_counts(mont_mul, mod_add, mod_sub)

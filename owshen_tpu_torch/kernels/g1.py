@@ -15,12 +15,14 @@ over Fq2.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 from . import build
 from .field_ops import (add_lm, broadcast_shape, count_launch, from_lm, keep_operands,
                         kernel_operand, mul_lm, on_cpu, PLAIN_CHUNK, plain_chunked, plain_consts,
-                        stream_handle, sub_lm, to_lm)
+                        stream_handle, sub_lm, to_lm, zero_counts)
 
 
 B3 = 9   # 3·b of y² = x³ + 3: K2, K3 and FqOps.mul_b3 multiply by it as 2·2·2·x + x
@@ -128,7 +130,7 @@ def g1_double_plain(p):
     return tuple(o.reshape(shape) for o in out)
 
 
-def _launch(entry: str, wrapper, coords):
+def _launch(entry: str, wrapper, coords, t0: int):
     pts = tuple(tuple(coords[i:i + 3]) for i in range(0, len(coords), 3))
     coords, shape = broadcast_coords(*coords)
     ops = [kernel_operand(c) for c in coords]
@@ -139,23 +141,24 @@ def _launch(entry: str, wrapper, coords):
     lib = build.library("g1")
     rc = getattr(lib, entry)(*(t.data_ptr() for t in ops + outs), n, stream_handle(dev))
     build.check(rc, entry)
-    count_launch(wrapper, n)
+    count_launch(wrapper, n, t0)
     return tuple(o.reshape(shape) for o in outs)
 
 
 def g1_add(p, q):
     """Complete G1 addition p + q (K2)."""
+    t0 = time.perf_counter_ns()
     if on_cpu(*p, *q):
         return g1_add_plain(p, q)
-    return _launch("g1_add_launch", g1_add, (*p, *q))
+    return _launch("g1_add_launch", g1_add, (*p, *q), t0)
 
 
 def g1_double(p):
     """Complete G1 doubling 2·p (K3)."""
+    t0 = time.perf_counter_ns()
     if on_cpu(*p):
         return g1_double_plain(p)
-    return _launch("g1_double_launch", g1_double, p)
+    return _launch("g1_double_launch", g1_double, p, t0)
 
 
-for _wrapper in (g1_add, g1_double):
-    _wrapper.launches, _wrapper.widths = 0, {}
+zero_counts(g1_add, g1_double)

@@ -18,6 +18,7 @@ which chip_smoke.py's bound charges per point.
 from __future__ import annotations
 
 import functools
+import time
 
 import torch
 
@@ -26,7 +27,7 @@ from ..oracle.field import P_FQ
 from . import build
 from .field_ops import (add_lm, count_launch, from_lm, keep_operands, kernel_operand, L, MASK,
                         mul_lm, on_cpu, PLAIN_CHUNK, plain_chunked, plain_consts, stream_handle,
-                        sub_lm, to_lm)
+                        sub_lm, to_lm, zero_counts)
 from .g1 import add_lm_pts, broadcast_coords, double_lm_pts
 
 B3 = ((3 * B_G2[0]) % P_FQ, (3 * B_G2[1]) % P_FQ)   # 3·b' as (c0, c1)
@@ -135,7 +136,7 @@ def g2_double_plain(p):
     return _plain(double_lm_pts, p)
 
 
-def _launch(entry: str, wrapper, coords):
+def _launch(entry: str, wrapper, coords, t0: int):
     pts = tuple(tuple(coords[i:i + 3]) for i in range(0, len(coords), 3))
     coords, shape = _g2_coords(coords)
     ops = [kernel_operand(c) for c in coords]         # (2N, 16): c0, c1 of each point
@@ -146,23 +147,24 @@ def _launch(entry: str, wrapper, coords):
     lib = build.library("g2")
     rc = getattr(lib, entry)(*(t.data_ptr() for t in ops + outs), n, stream_handle(dev))
     build.check(rc, entry)
-    count_launch(wrapper, n)
+    count_launch(wrapper, n, t0)
     return tuple(o.reshape(shape) for o in outs)
 
 
 def g2_add(p, q):
     """Complete G2 addition p + q."""
+    t0 = time.perf_counter_ns()
     if on_cpu(*p, *q):
         return g2_add_plain(p, q)
-    return _launch("g2_add_launch", g2_add, (*p, *q))
+    return _launch("g2_add_launch", g2_add, (*p, *q), t0)
 
 
 def g2_double(p):
     """Complete G2 doubling 2·p."""
+    t0 = time.perf_counter_ns()
     if on_cpu(*p):
         return g2_double_plain(p)
-    return _launch("g2_double_launch", g2_double, p)
+    return _launch("g2_double_launch", g2_double, p, t0)
 
 
-for _wrapper in (g2_add, g2_double):
-    _wrapper.launches, _wrapper.widths = 0, {}
+zero_counts(g2_add, g2_double)

@@ -18,14 +18,15 @@ loop of the double, the add and a select over n_bits steps, MSB first.
 from __future__ import annotations
 
 import functools
+import time
 
 import torch
 
 from ..oracle.field import P_FR
 from . import build
-from .field_ops import (add_lm, count_launch, from_lm, keep_operands, kernel_operand, L,
-                        limb_rows, mul_lm, on_cpu, PLAIN_CHUNK, plain_chunked, plain_consts,
-                        stream_handle, sub_lm, to_lm)
+from .field_ops import (add_lm, count_launch, from_lm, keep_operands, kernel_operand, L, limb_rows,
+                        mul_lm, on_cpu, PLAIN_CHUNK, plain_chunked, plain_consts, stream_handle,
+                        sub_lm, to_lm, zero_counts)
 from .g1 import broadcast_coords
 
 A = 168700
@@ -136,7 +137,7 @@ def jub_scalar_mul_plain(p, scalars, n_bits: int):
     return tuple(o.reshape(shape) for o in out)
 
 
-def _launch(entry: str, wrapper, coords, extra, kept):
+def _launch(entry: str, wrapper, coords, extra, kept, t0: int):
     coords, shape = broadcast_coords(*coords)
     ops = [kernel_operand(c) for c in coords]
     n = ops[0].shape[0]
@@ -146,27 +147,28 @@ def _launch(entry: str, wrapper, coords, extra, kept):
     rc = getattr(build.library("jub"), entry)(*(t.data_ptr() for t in ops + outs), n, *extra,
                                                stream_handle(dev))
     build.check(rc, entry)
-    count_launch(wrapper, n)
+    count_launch(wrapper, n, t0)
     return tuple(o.reshape(shape) for o in outs)
 
 
 def jub_add(p, q):
     """Complete BabyJubJub addition p + q."""
+    t0 = time.perf_counter_ns()
     if on_cpu(*p, *q):
         return jub_add_plain(p, q)
-    return _launch("jub_add_launch", jub_add, (*p, *q), (), (p, q))
+    return _launch("jub_add_launch", jub_add, (*p, *q), (), (p, q), t0)
 
 
 def jub_scalar_mul(p, scalars, n_bits: int):
     """Σ_{i < n_bits} bit_i(k)·2^i·p for each lane's canonical scalar k
     (int32[..., 16] limbs): n_bits steps of the double-and-add ladder, MSB
     first, in one launch."""
+    t0 = time.perf_counter_ns()
     n_bits = _check_bits(n_bits)
     if on_cpu(*p, scalars):
         return jub_scalar_mul_plain(p, scalars, n_bits)
     return _launch("jub_scalar_mul_launch", jub_scalar_mul, (*p, scalars), (n_bits,),
-                   (p, scalars, n_bits))
+                   (p, scalars, n_bits), t0)
 
 
-for _wrapper in (jub_add, jub_scalar_mul):
-    _wrapper.launches, _wrapper.widths = 0, {}
+zero_counts(jub_add, jub_scalar_mul)

@@ -20,12 +20,13 @@ Each wrapper counts its launches in `.launches` and `.widths`.
 from __future__ import annotations
 
 import functools
+import time
 
 import torch
 
 from . import build
-from .field_ops import (FIELD_INDEX, L, count_launch, keep_operands, kernel_operand,
-                        mod_add_plain, mod_sub_plain, mont_mul_plain, on_cpu, stream_handle)
+from .field_ops import (FIELD_INDEX, L, count_launch, keep_operands, kernel_operand, mod_add_plain,
+                        mod_sub_plain, mont_mul_plain, on_cpu, stream_handle, zero_counts)
 
 MAX_COLS_LOGN = 12   # a 2^12 column and its twiddles fill 194 KB of shared memory
 
@@ -77,6 +78,7 @@ def butterfly_stage(x: torch.Tensor, pows: torch.Tensor, log_m: int,
                     field: str = "fr") -> torch.Tensor:
     """DIT stage 2^log_m over axis 0 of the contiguous x, in place (K5);
     returns x."""
+    t0 = time.perf_counter_ns()
     n = x.shape[0]
     log_n = _log2(n)
     _check(x, pows, max(n // 2, 1))
@@ -96,7 +98,7 @@ def butterfly_stage(x: torch.Tensor, pows: torch.Tensor, log_m: int,
     rc = build.library("ntt").ntt_stage_launch(x.data_ptr(), p.data_ptr(), n, batch, log_m,
                                                FIELD_INDEX[field], stream_handle(x.device))
     build.check(rc, "ntt_stage_launch")
-    count_launch(butterfly_stage, (n // 2) * batch)
+    count_launch(butterfly_stage, (n // 2) * batch, t0)
     return x
 
 
@@ -115,6 +117,7 @@ def ntt_cols_plain(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
 def ntt_cols(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     """NTT over Fr along axis 0 of x int32[n1, cols, 16], natural order in
     and out, twiddles tw = ω_{n1}^j for j < n1/2 (K7)."""
+    t0 = time.perf_counter_ns()
     if x.ndim != 3:
         raise ValueError(f"expected int32[n1, cols, {L}], got {list(x.shape)}")
     log_n1 = _log2(x.shape[0])
@@ -130,9 +133,8 @@ def ntt_cols(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     rc = build.library("ntt").ntt_cols_launch(xt.data_ptr(), t.data_ptr(), out.data_ptr(),
                                               log_n1, cols, stream_handle(x.device))
     build.check(rc, "ntt_cols_launch")
-    count_launch(ntt_cols, cols)
+    count_launch(ntt_cols, cols, t0)
     return out.view(x.shape)
 
 
-for _wrapper in (butterfly_stage, ntt_cols):
-    _wrapper.launches, _wrapper.widths = 0, {}
+zero_counts(butterfly_stage, ntt_cols)

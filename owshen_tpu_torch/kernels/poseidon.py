@@ -17,6 +17,7 @@ kernel's.
 from __future__ import annotations
 
 import functools
+import time
 
 import torch
 
@@ -24,7 +25,7 @@ from ..ops.constants import POSEIDON_RF, POSEIDON_RP, poseidon_params
 from . import build
 from .field_ops import (MODULI, broadcast_shape, count_launch, from_lm, keep_operands,
                         kernel_operand, limb_rows, mul_lm, on_cpu, plain_chunked, plain_consts,
-                        redc_cols, stream_handle, to_lm)
+                        redc_cols, stream_handle, to_lm, zero_counts)
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,6 +87,7 @@ def poseidon_hash2_plain(left: torch.Tensor, right: torch.Tensor) -> torch.Tenso
 
 def poseidon_hash2(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     """Poseidon(left, right) with circomlib t = 3 parameters (K4)."""
+    t0 = time.perf_counter_ns()
     if on_cpu(left, right):
         return poseidon_hash2_plain(left, right)
     shape = broadcast_shape(left.shape, right.shape)
@@ -98,8 +100,8 @@ def poseidon_hash2(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     rc = lib.poseidon2_launch(lt.data_ptr(), rt.data_ptr(), out.data_ptr(), n,
                               stream_handle(lt.device))
     build.check(rc, "poseidon2_launch")
-    count_launch(poseidon_hash2, n)
+    count_launch(poseidon_hash2, n, t0)
     return out.reshape(shape)
 
 
-poseidon_hash2.launches, poseidon_hash2.widths = 0, {}
+zero_counts(poseidon_hash2)

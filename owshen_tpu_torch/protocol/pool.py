@@ -152,7 +152,6 @@ class PrivacyPool:
             self.tree.insert_ints(idxs, commitments)
         metrics.inc("pool.deposits", len(commitments))
         self.next_index += len(commitments)
-        metrics.gauge("pool.next_index", self.next_index)
         self.deposited.update(l1_tx_hashes)
         self.minted.update(mint_ids)
         for tid, amt in zip(token_ids, amounts):
@@ -305,16 +304,27 @@ class PrivacyPool:
         pool's device.  Returns (proof, root, nullifier).  The parameters
         before `seed` are the reference's, in its order; `msm_c` and
         `msm_lanes` go to `groth16.prove`.  `seed` fixes the proof's
-        randomizers (tests only)."""
-        sibs_dev, _bits = self.tree.path([index])
-        sibs = FR.decode(sibs_dev[0])
-        w = circuits.WithdrawWitness(secret=secret, salt=salt, amount=amount,
-                                     index=index, siblings=sibs, token=_token_id(token))
-        root = self.tree.root_int()
-        b = circuits.withdraw_circuit(self.depth, w, root=root, recipient=recipient)
-        if not b.check():
-            raise PoolError("witness does not satisfy the circuit")
-        with metrics.timer("pool.prove_withdraw"):
-            proof = groth16.prove(self.pk, b, seed=seed, msm_c=msm_c,
-                                  msm_lanes=msm_lanes, device=self.device)
-        return proof, root, circuits.nullifier_of(secret, index)
+        randomizers (tests only).
+
+        Timed as the span `pool.prove_request`, with one child span a stage:
+        `pool.tree_path`, `pool.synthesize`, `pool.check`,
+        `pool.prove_withdraw` (`groth16.prove`) and `pool.nullifier`."""
+        with metrics.timer("pool.prove_request"):
+            with metrics.timer("pool.tree_path"):
+                sibs_dev, _bits = self.tree.path([index])
+                sibs = FR.decode(sibs_dev[0])
+                root = self.tree.root_int()
+            w = circuits.WithdrawWitness(secret=secret, salt=salt, amount=amount,
+                                         index=index, siblings=sibs, token=_token_id(token))
+            with metrics.timer("pool.synthesize"):
+                b = circuits.withdraw_circuit(self.depth, w, root=root, recipient=recipient)
+            with metrics.timer("pool.check"):
+                satisfied = b.check()
+            if not satisfied:
+                raise PoolError("witness does not satisfy the circuit")
+            with metrics.timer("pool.prove_withdraw"):
+                proof = groth16.prove(self.pk, b, seed=seed, msm_c=msm_c,
+                                      msm_lanes=msm_lanes, device=self.device)
+            with metrics.timer("pool.nullifier"):
+                nullifier = circuits.nullifier_of(secret, index)
+        return proof, root, nullifier
