@@ -4,7 +4,12 @@ R1CS.
 Constraint shape: each x^5 S-box costs 3 multiplications (x², x⁴, x⁵); MDS
 and round-constant layers are free linear combinations.  MiMC7's x^7 costs
 4.  These define the in-circuit hashes whose outputs must bit-exactly match
-the CUDA kernels behind ops/hash.py (same constants module)."""
+the CUDA kernels behind ops/hash.py (same constants module).
+
+Each gadget takes its constants and linear combinations from the builder
+(`b.const`, `b.lincomb`), so the same text runs on a `Builder`, which
+records the constraints, and on a `WitnessBuilder`, which computes the
+values only."""
 
 from __future__ import annotations
 
@@ -27,17 +32,14 @@ def poseidon_gadget(b: Builder, inputs: list[LC]) -> LC:
     C, M = poseidon_params(t)
     r_f, r_p = POSEIDON_RF, POSEIDON_RP[t - 2]
     half = r_f // 2
-    state = [LC.const(0)] + list(inputs)
+    state = [b.const(0)] + list(inputs)
     for r in range(r_f + r_p):
-        state = [s + LC.const(C[r * t + i]) for i, s in enumerate(state)]
+        state = [s + b.const(C[r * t + i]) for i, s in enumerate(state)]
         if r < half or r >= half + r_p:
             state = [_pow5(b, s) for s in state]
         else:
             state[0] = _pow5(b, state[0])
-        state = [
-            sum((state[j].scale(M[i][j]) for j in range(t)), LC())
-            for i in range(t)
-        ]
+        state = [b.lincomb(M[i], state) for i in range(t)]
     return state[0]
 
 
@@ -53,13 +55,13 @@ def mimc7_gadget(b: Builder, x: LC, k: LC) -> LC:
 
     r = pow7(x + k)
     for c in cts[1:]:
-        r = pow7(r + k + LC.const(c))
+        r = pow7(r + k + b.const(c))
     return r + k
 
 
 def mimc7_multi_gadget(b: Builder, inputs: list[LC]) -> LC:
     """MultiMiMC7 with key 0: r += x + MiMC7(x, r)."""
-    r = LC.const(0)
+    r = b.const(0)
     for x in inputs:
         r = r + x + mimc7_gadget(b, x, r)
     return r

@@ -19,13 +19,18 @@ burn_id — plus binds the recipient so a voucher cannot be front-run.  The
 hash is the Poseidon of ops/hash.py (identical constants => in-circuit and
 on-card values match bit-exactly).  As in the reference, the pool's
 deposit path proves nothing: a deposit proof is the wallet's to make.
+
+Each circuit is written once, over a builder: `*_circuit` runs it on a
+`Builder` (the structure, with the values when a witness is given), and
+`*_values` on a `WitnessBuilder` (the values only, for a proof on a key
+that keeps the structure).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ..groth16.r1cs import Builder
+from ..groth16.r1cs import Builder, WitnessBuilder
 from ..oracle import hash as ohash
 from .gadgets import merkle_path_gadget, poseidon_gadget
 
@@ -58,7 +63,15 @@ class DepositWitness:
 def deposit_circuit(w: DepositWitness | None = None) -> Builder:
     """Public: [commitment, amount, token].  Proves knowledge of
     (secret, salt) with commitment = Poseidon(secret, salt, amount, token)."""
-    b = Builder()
+    return _deposit(Builder(), w)
+
+
+def deposit_values(w: DepositWitness) -> WitnessBuilder:
+    """The witness of `deposit_circuit(w)`, by the values-only pass."""
+    return _deposit(WitnessBuilder(), w)
+
+
+def _deposit(b: Builder, w: DepositWitness | None) -> Builder:
     have = w is not None
     com_v = commitment_of(w.secret, w.salt, w.amount, w.token) if have else None
     com = b.pub(com_v)
@@ -94,7 +107,18 @@ def withdraw_circuit(depth: int, w: WithdrawWitness | None = None,
     a proof can only release the deposited asset (the reference binds the
     token the same way: `_tokenAddress` in the Owshen.sol:70 hash and
     Token in every Mint/Burn, custom.rs:31-93)."""
-    b = Builder()
+    return _withdraw(Builder(), depth, w, root, recipient)
+
+
+def withdraw_values(depth: int, w: WithdrawWitness, root: int,
+                    recipient: int) -> WitnessBuilder:
+    """The witness of `withdraw_circuit(depth, w, root, recipient)`, by the
+    values-only pass."""
+    return _withdraw(WitnessBuilder(), depth, w, root, recipient)
+
+
+def _withdraw(b: Builder, depth: int, w: WithdrawWitness | None, root: int | None,
+              recipient: int | None) -> Builder:
     have = w is not None
     null_v = nullifier_of(w.secret, w.index) if have else None
     root_lc = b.pub(root if root is not None else None)

@@ -2,7 +2,10 @@
 owshen_tpu/groth16/groth16.py, with the prover's hot path on the card.
 
   * witness: host (the builder assigns values during synthesis);
-  * A·w, B·w, C·w: sparse matvec over nnz-bucketed rows (K1);
+  * A·w, B·w, C·w: sparse matvec over nnz-bucketed rows (K1), on the
+    constraint matrices that `setup` compiles once and keeps with the
+    proving key on its device (`_key_r1cs`): a proof brings its witness
+    only, and may come from a values-only synthesis (r1cs.WitnessBuilder);
   * h(x) = intt_coset((A·B − C)·Z⁻¹): NTTs over the domain (K1);
   * commitments: the fixed-table MSM engine (ops/msm_fixed.py) — one
     gather and one batched fold for the five G1 MSMs (K2), the G2 MSM on
@@ -26,6 +29,7 @@ import functools
 import hashlib
 import os
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -170,6 +174,7 @@ def setup(builder: Builder, seed: bytes = b"owshen-tpu-setup", device=None):
                     k_g1=k_g1 if k_exp else None, h_g1=h_g1, alpha_g1=alpha_g1,
                     beta_g1=beta_g1, delta_g1=delta_g1, beta_g2=beta_g2,
                     delta_g2=delta_g2)
+    _attach_r1cs(pk, builder)
     vk = VerifyingKey(
         alpha_g1=ocurve.G1.mul(ocurve.G1_GEN, alpha),
         beta_g2=ocurve.G2.mul(ocurve.G2_GEN, beta),
@@ -417,6 +422,61 @@ def _device_mats(mats, device):
                        for rids, idx, coeff in mat) for mat in mats)
 
 
+class _KeyR1cs(NamedTuple):
+    """A key's constraint structure, derived data kept with it like its
+    fixed tables (not saved with the key): the (A, B, C) rows on host and
+    their compiled matrices on the key's device."""
+    constraints: list
+    mats: tuple
+
+
+def _attach_r1cs(pk: ProvingKey, builder: Builder) -> _KeyR1cs:
+    """Compile the builder's constraints (`Builder.compiled`), upload the
+    matrices to the key's device and keep them, and the rows, with the key."""
+    r1cs = _KeyR1cs(builder.constraints,
+                    _device_mats(builder.compiled(pk.n_domain), pk.device))
+    object.__setattr__(pk, "_r1cs", r1cs)
+    return r1cs
+
+
+def _shapes(pk: ProvingKey, builder: Builder):
+    """(num_vars, publics with the constant wire) of the builder and of the key."""
+    return (builder.num_vars, builder.n_pub + 1), (pk.a_g1[0].shape[0], pk.n_pub)
+
+
+def _check_shape(pk: ProvingKey, builder: Builder) -> None:
+    """A builder proves on a key only with the key's variables and publics."""
+    got, want = _shapes(pk, builder)
+    if got != want:
+        raise ValueError(f"builder has (num_vars, n_pub + 1) = {got}, the proving key "
+                         f"{want}")
+
+
+def key_constraints(pk: ProvingKey, builder: Builder):
+    """The (A, B, C) rows the key keeps for a builder of its shape, or None
+    when the key keeps none (a key restored from a checkpoint, or built by
+    the JAX package and carried across, before its first proof) or the
+    builder has another shape."""
+    r1cs = getattr(pk, "_r1cs", None)
+    got, want = _shapes(pk, builder)
+    return r1cs.constraints if r1cs is not None and got == want else None
+
+
+def _key_r1cs(pk: ProvingKey, builder: Builder) -> tuple:
+    """The matrices a proof runs on: the key's own (counted as
+    groth16.r1cs_reused), or, when the key keeps none, compiled from the
+    builder's constraints and kept with the key (groth16.r1cs_built)."""
+    r1cs = getattr(pk, "_r1cs", None)
+    if r1cs is not None:
+        metrics.inc("groth16.r1cs_reused")
+        return r1cs.mats
+    if builder.constraints is None:
+        raise ValueError("the proving key keeps no constraint structure and the builder "
+                         "holds values only: prove once with a full Builder of the circuit")
+    metrics.inc("groth16.r1cs_built")
+    return _attach_r1cs(pk, builder).mats
+
+
 def _fixed_tables_fit(pk: ProvingKey) -> bool:
     """True when the key's fixed tables are built or fit the card budget
     (OWSHEN_FIXED_TABLE_MAX_GB); past it the prover takes the sorted engine
@@ -506,6 +566,14 @@ def prove(pk: ProvingKey, builder: Builder, seed: bytes | None = None,
     CUDA unless asked otherwise).  The parameters before `device` are the
     reference's, in its order.
 
+    The structure comes from the key, the values from the builder: the
+    constraint matrices are the ones `setup` kept with the key, so the
+    builder may be a values-only `WitnessBuilder`.  A key that keeps none
+    (restored from a checkpoint, or carried across from the JAX package)
+    compiles them from the builder, which must then be a full `Builder`,
+    and keeps them for the proofs after.  A builder whose variables or
+    publics differ from the key's is a ValueError.
+
     The randomizers (r, s) default to fresh `os.urandom` entropy: zero
     knowledge collapses if they are predictable.  Pass an explicit `seed`
     only for reproducible tests.
@@ -525,6 +593,7 @@ def prove(pk: ProvingKey, builder: Builder, seed: bytes | None = None,
     dev = resolve_device(device)
     if pk.device != dev:
         raise ValueError(f"proving key lives on {pk.device}, prove asked for {dev}")
+    _check_shape(pk, builder)
     with metrics.timer("groth16.witness"):
         w = builder.witness()
         rs = _rand_stream((seed if seed is not None else os.urandom(32)) + b"|rs")
@@ -532,7 +601,7 @@ def prove(pk: ProvingKey, builder: Builder, seed: bytes | None = None,
     n = pk.n_domain
     dom = _domain(n.bit_length() - 1)
     with metrics.timer("groth16.r1cs"):
-        mats = _device_mats(builder.compiled(n), dev)
+        mats = _key_r1cs(pk, builder)
     with metrics.timer("groth16.h"):
         w_mont = FR.encode(w, device=dev)
         if mesh is not None:

@@ -1,17 +1,33 @@
-"""R1CS constraint-system builder with inline witness computation.
+"""R1CS constraint systems: the structure, fixed by the circuit, and the
+witness, assigned for each proof.
 
 A minimal circuit DSL (the role circom plays for the original Owshen wallet,
 absent from the reference snapshot — SURVEY.md §0): variables are indices
 into the witness vector [1, publics..., privates...]; constraints are
 (A·w)·(B·w) = (C·w) rows with sparse linear combinations.
 
-The builder tracks concrete values alongside structure, so one synthesis pass
-yields both the constraint matrices (for setup) and the witness (for prove);
-gadgets are written value-agnostically so the structure is identical with or
-without values (witness generation stays on host per SURVEY.md §7.4.5).
+A circuit is one function over a builder, and either of two builders with
+one interface runs it:
+
+  * `Builder` records the structure: each linear combination is a sparse
+    `LC`, each constraint an (A, B, C) triple, with the values carried
+    alongside when they are given.  `groth16.setup` walks its constraints,
+    and `compiled` turns them into the bucketed matrices that the proving
+    key keeps on its device: the structure is built once per key.
+  * `WitnessBuilder` records the values only: each linear combination is
+    one integer, congruent to its value mod p, `enforce` records nothing,
+    and `witness()` is the vector a full synthesis of the same inputs
+    gives, element for element.  This is the pass a proof runs.
+
+The gadgets take their constants and linear combinations from the builder
+(`const`, `lincomb`), so one gadget text yields both, and the two cannot
+drift.  `satisfied` checks a values-only witness against a kept structure
+on host integers.  Witness generation stays on host (SURVEY.md §7.4.5).
 """
 
 from __future__ import annotations
+
+import operator
 
 from ..oracle.field import P_FR
 
@@ -49,7 +65,18 @@ class LC(dict):
         return sum(values[k] * v for k, v in self.items()) % P
 
 
+def satisfied(constraints, w: list[int]) -> bool:
+    """Every (A, B, C) row holds on the witness w: (A·w)·(B·w) = C·w mod p."""
+    return all(a.eval(w) * b.eval(w) % P == c.eval(w) for a, b, c in constraints)
+
+
 class Builder:
+    """The structure: sparse LCs and the (A, B, C) constraint list, with
+    values carried alongside where they are given (None where not).  The
+    gadget-facing operations are written once here, over the primitives
+    that `WitnessBuilder` replaces (`_alloc`, `_val`, `const`, `lincomb`,
+    `enforce`, `mul`)."""
+
     def __init__(self):
         self.values: list[int | None] = [1]
         self.n_pub = 0
@@ -60,12 +87,14 @@ class Builder:
 
     def pub(self, value=None) -> LC:
         assert not self._pub_done, "allocate all public inputs first"
-        self.values.append(None if value is None else value % P)
         self.n_pub += 1
-        return LC.var(len(self.values) - 1)
+        return self._alloc(value)
 
     def priv(self, value=None) -> LC:
         self._pub_done = True
+        return self._alloc(value)
+
+    def _alloc(self, value) -> LC:
         self.values.append(None if value is None else value % P)
         return LC.var(len(self.values) - 1)
 
@@ -78,13 +107,20 @@ class Builder:
             return None
         return lc.eval(self.values)
 
+    const = staticmethod(LC.const)
+
+    @staticmethod
+    def lincomb(coeffs, lcs) -> LC:
+        """Σ coeffs[i]·lcs[i]."""
+        return sum((x.scale(c) for c, x in zip(coeffs, lcs)), LC())
+
     # ---------- constraints ----------
 
     def enforce(self, a: LC, b: LC, c: LC):
         self.constraints.append((a, b, c))
 
     def enforce_eq(self, a: LC, b: LC):
-        self.enforce(a - b, LC.const(1), LC.const(0))
+        self.enforce(a - b, self.const(1), self.const(0))
 
     def mul(self, a: LC, b: LC) -> LC:
         va, vb = self._val(a), self._val(b)
@@ -96,21 +132,17 @@ class Builder:
         return self.mul(a, a)
 
     def assert_bool(self, a: LC):
-        self.enforce(a, a - LC.const(1), LC.const(0))
+        self.enforce(a, a - self.const(1), self.const(0))
 
     def bits(self, a: LC, n: int) -> list[LC]:
         """Decompose into n little-endian bits (allocated + constrained)."""
         va = self._val(a)
         bs = []
         for i in range(n):
-            bit_val = None if va is None else (va >> i) & 1
-            b = self.priv(bit_val)
+            b = self.priv(None if va is None else (va >> i) & 1)
             self.assert_bool(b)
             bs.append(b)
-        acc = LC()
-        for i, b in enumerate(bs):
-            acc = acc + b.scale(pow(2, i, P))
-        self.enforce_eq(acc, a)
+        self.enforce_eq(self.lincomb([pow(2, i, P) for i in range(n)], bs), a)
         return bs
 
     def mux(self, bit: LC, a: LC, b: LC) -> tuple[LC, LC]:
@@ -121,8 +153,10 @@ class Builder:
     # ---------- export ----------
 
     def compiled(self, n_rows: int):
-        """Constraint matrices as nnz-BUCKETED index/coefficient arrays for
-        the sparse matvec on the card.
+        """The constraint matrices as nnz-BUCKETED index/coefficient arrays
+        for the sparse matvec on the card.  They depend on the circuit
+        alone: `groth16.setup` compiles them once and keeps them with the
+        proving key on its device, and every proof on that key reuses them.
 
         Padding every row to K = max nnz is quadratic waste when a few rows
         are wide (Poseidon partial-round LCs reach 61 nonzeros at depth 16
@@ -166,8 +200,38 @@ class Builder:
         return list(self.values)
 
     def check(self) -> bool:
-        w = self.witness()
-        return all(
-            a.eval(w) * b.eval(w) % P == c.eval(w)
-            for a, b, c in self.constraints
-        )
+        return satisfied(self.constraints, self.witness())
+
+
+class WitnessBuilder(Builder):
+    """The values only, for a circuit whose structure is kept elsewhere
+    (with the proving key): a linear combination is one integer, congruent
+    to its value mod p, and a constraint records nothing (`constraints` is
+    None).  Every value is required."""
+
+    def __init__(self):
+        super().__init__()
+        self.constraints = None
+
+    def _alloc(self, value) -> int:
+        v = value % P
+        self.values.append(v)
+        return v
+
+    @staticmethod
+    def _val(a: int) -> int:
+        return a % P
+
+    @staticmethod
+    def const(c: int) -> int:
+        return c % P
+
+    @staticmethod
+    def lincomb(coeffs, xs) -> int:
+        return sum(map(operator.mul, coeffs, xs)) % P
+
+    def enforce(self, a, b, c):
+        pass
+
+    def mul(self, a: int, b: int) -> int:
+        return self.priv(a * b)

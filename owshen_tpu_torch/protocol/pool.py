@@ -26,7 +26,7 @@ from ..circuits import pool as circuits
 from ..config import resolve_device, settings
 from ..curves import babyjubjub as jub
 from ..fields.field import FR, ints_to_tensor
-from ..groth16 import groth16
+from ..groth16 import groth16, r1cs
 from ..ops.keccak import keccak256_int
 from ..ops.merkle import SparseMerkleTree
 from ..oracle import eddsa as oeddsa
@@ -306,6 +306,14 @@ class PrivacyPool:
         `msm_lanes` go to `groth16.prove`.  `seed` fixes the proof's
         randomizers (tests only).
 
+        The circuit's structure is the one kept with the proving key
+        (`groth16.setup` keeps the builder's that `__init__` synthesises), so
+        a proof synthesises the values only (`circuits.withdraw_values`) and
+        checks them against every kept constraint on host before proving.
+        A key that keeps none (a pool given its keys, or restored from a
+        checkpoint) gets a full synthesis at its first proof, and
+        `groth16.prove` keeps its structure with the key.
+
         Timed as the span `pool.prove_request`, with one child span a stage:
         `pool.tree_path`, `pool.synthesize`, `pool.check`,
         `pool.prove_withdraw` (`groth16.prove`) and `pool.nullifier`."""
@@ -317,9 +325,14 @@ class PrivacyPool:
             w = circuits.WithdrawWitness(secret=secret, salt=salt, amount=amount,
                                          index=index, siblings=sibs, token=_token_id(token))
             with metrics.timer("pool.synthesize"):
-                b = circuits.withdraw_circuit(self.depth, w, root=root, recipient=recipient)
+                b = circuits.withdraw_values(self.depth, w, root=root, recipient=recipient)
+                rows = groth16.key_constraints(self.pk, b)
+                if rows is None:
+                    b = circuits.withdraw_circuit(self.depth, w, root=root,
+                                                  recipient=recipient)
+                    rows = b.constraints
             with metrics.timer("pool.check"):
-                satisfied = b.check()
+                satisfied = r1cs.satisfied(rows, b.witness())
             if not satisfied:
                 raise PoolError("witness does not satisfy the circuit")
             with metrics.timer("pool.prove_withdraw"):
