@@ -6,6 +6,9 @@ and round-constant layers are free linear combinations.  MiMC7's x^7 costs
 4.  These define the in-circuit hashes whose outputs must bit-exactly match
 the CUDA kernels behind ops/hash.py (same constants module).
 
+`is_zero`, `is_equal` and `force_equal_if_enabled` are circomlib's
+comparators of the same names, row for row.
+
 Each gadget takes its constants and linear combinations from the builder
 (`b.const`, `b.lincomb`), so the same text runs on a `Builder`, which
 records the constraints, and on a `WitnessBuilder`, which computes the
@@ -80,3 +83,24 @@ def merkle_path_gadget(b: Builder, leaf: LC, path_bits: list[LC],
         l, r = b.mux(bit, node, sib)
         node = hash2(b, l, r)
     return node
+
+
+def is_zero(b: Builder, x: LC) -> LC:
+    """circomlib IsZero: 1 when x = 0, else 0.  The hinted inverse `inv`
+    (0 for x = 0) and out make two rows: x·inv = 1 − out and x·out = 0."""
+    inv = b.hint(lambda v: pow(v, -1, P) if v else 0, x)
+    out = b.hint(lambda v: int(v == 0), x)
+    b.enforce(x, inv, b.const(1) - out)
+    b.enforce(x, out, b.const(0))
+    return out
+
+
+def is_equal(b: Builder, x: LC, y: LC) -> LC:
+    """circomlib IsEqual: IsZero(y − x)."""
+    return is_zero(b, y - x)
+
+
+def force_equal_if_enabled(b: Builder, x: LC, y: LC, enabled: LC) -> None:
+    """circomlib ForceEqualIfEnabled: (1 − IsZero(y − x))·enabled = 0, so
+    x = y wherever `enabled` is nonzero."""
+    b.enforce(b.const(1) - is_equal(b, x, y), enabled, b.const(0))

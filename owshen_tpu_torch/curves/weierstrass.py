@@ -67,12 +67,16 @@ class Weierstrass:
 
     def scalar_mul(self, p, bits):
         """Batched double-and-add over the MSB-first bit array bits[n_bits,
-        ...]: per bit one double, one add and a select (branchless, as in
-        the reference)."""
-        acc = self.identity_like(p[0])
-        for bit in bits:
-            acc = self.double(acc)
-            acc = self.select(bit != 0, self.add(acc, p), acc)
+        ...], branchless: every step's addend (bit ? p : identity) selected
+        at once, then per bit one double and one add.  Complete formulas
+        make adding the identity exact, so this is the reference's select
+        after each add with a third of the launches."""
+        ident = self.identity_like(p[0])
+        addends = self.select(bits != 0, tuple(a.expand(bits.shape[:1] + a.shape) for a in p),
+                              ident)
+        acc = ident
+        for k in range(bits.shape[0]):
+            acc = self.add(self.double(acc), tuple(a[k] for a in addends))
         return acc
 
     def to_affine(self, p):

@@ -37,12 +37,13 @@ from ..config import resolve_device, settings
 from ..curves import bn254
 from ..curves.fixed_base import g1_fixed_base, g2_fixed_base
 from ..fields.field import FR, ints_to_tensor
-from ..ops.msm import _pad_identity, msm, msm_sorted
+from ..ops.msm import _pad_identity, msm, msm_sorted_many
 from ..ops.msm_fixed import FixedMsm, FixedMsmGroup
 from ..ops.ntt import NttDomain
 from ..oracle import curve as ocurve
 from ..runtime.metrics import metrics
 from .pairing import pairing_product_is_one
+from . import r1cs
 from .r1cs import Builder
 
 P = FR.p
@@ -477,6 +478,22 @@ def _key_r1cs(pk: ProvingKey, builder: Builder) -> tuple:
     return _attach_r1cs(pk, builder).mats
 
 
+def satisfied(pk: ProvingKey, builder: Builder) -> bool:
+    """Every constraint holds on the builder's witness, (A·w)·(B·w) = C·w:
+    on the key's device over the matrices it keeps, when it keeps them
+    for a builder of this shape (the witness encoded once, three sparse
+    matvecs, one product, one wait for the card), else on the host over
+    the builder's own rows (`r1cs.satisfied`)."""
+    kept = getattr(pk, "_r1cs", None)
+    got, want = _shapes(pk, builder)
+    w = builder.witness()
+    if kept is None or got != want:
+        return r1cs.satisfied(builder.constraints, w)
+    w_mont = FR.to_mont(FR.encode(w, mont=False, device=pk.device))
+    a, b, c = (_matvec(w_mont, mat, pk.n_domain) for mat in kept.mats)
+    return bool(FR.eq(FR.mul(a, b), c).all())
+
+
 def _fixed_tables_fit(pk: ProvingKey) -> bool:
     """True when the key's fixed tables are built or fit the card budget
     (OWSHEN_FIXED_TABLE_MAX_GB); past it the prover takes the sorted engine
@@ -503,8 +520,14 @@ def _resolve_engine(pk: ProvingKey, mesh, engine: str | None) -> str:
 
 def _scale_point(curve, p, k: int):
     """k · p for one projective point: the 254-bit double-and-add ladder."""
-    bits = FR.to_bits_le(ints_to_tensor([k % P], p[0].device), 254)[0]
-    return curve.scalar_mul(p, bits.flip(0))
+    return tuple(a[0] for a in _scale_points(curve, tuple(a[None] for a in p), [k]))
+
+
+def _scale_points(curve, pts, ks):
+    """ks[i] · pts[i] for projective points with (len(ks), ...) leaves:
+    one 254-bit double-and-add ladder with a scalar per lane."""
+    bits = FR.to_bits_le(ints_to_tensor([k % P for k in ks], pts[0].device), 254)
+    return curve.scalar_mul(pts, bits.flip(1).T)
 
 
 def _scale_first(curve, pts, k: int):
@@ -513,50 +536,67 @@ def _scale_first(curve, pts, k: int):
 
 
 def _msm_engine(curve, engine: str, msm_c: int, msm_lanes: int):
-    """The legacy engines' MSM: "lane" is `msm` (c = msm_c, msm_lanes
-    lanes), "sorted" (or OWSHEN_PROVER_SORTED_MSM=1) `msm_sorted` at c = 8.
-    Every batch is padded with identities to a power of two ≥ 2^9 points,
-    as in the reference (there, so that the MSMs share one compiled
-    shape)."""
+    """The legacy engines' MSMs: call([(points, scalars), ...]) returns one
+    point a job.  "lane" is `msm` a job (c = msm_c, msm_lanes lanes),
+    "sorted" (or OWSHEN_PROVER_SORTED_MSM=1) `msm_sorted_many` at c = 8
+    over all jobs at once.  Every batch is padded with identities to a
+    power of two ≥ 2^9 points, as in the reference (there, so that the MSMs
+    share one compiled shape)."""
     use_sorted = engine == "sorted" or settings().prover_sorted_msm
 
-    def call(pts, sc):
-        pts, sc = _pad_identity(curve, pts, sc, 1 << max(9, (sc.shape[0] - 1).bit_length()))
+    def call(jobs):
+        jobs = [_pad_identity(curve, pts, sc, 1 << max(9, (sc.shape[0] - 1).bit_length()))
+                for pts, sc in jobs]
         if use_sorted:
-            return msm_sorted(curve, pts, sc, c=8)
-        return msm(curve, pts, sc, c=msm_c, lanes=msm_lanes)
+            return msm_sorted_many(curve, jobs, c=8)
+        return [msm(curve, pts, sc, c=msm_c, lanes=msm_lanes) for pts, sc in jobs]
 
     return call
 
 
-def _prove_legacy(pk: ProvingKey, w: list[int], r: int, s: int, h_sc: torch.Tensor,
+def _prove_legacy(pk: ProvingKey, w_mont: torch.Tensor, r: int, s: int, h_sc: torch.Tensor,
                   engine: str, msm_c: int, msm_lanes: int) -> Proof:
     """Commitments through the Pippenger engines, the reference's legacy
     single-device path:
       A = α + Σ w_i·A_i(τ) + r·δ,   B = β + Σ w_i·B_i(τ) + s·δ (G2 and G1),
       C = Σ h_i·H_i + Σ_priv w_i·K_i + s·A + r·B₁ − r·s·δ,
-    the scalar multiples by 254-step double-and-add ladders on the card."""
+    the G1 MSMs in one `msm_sorted_many` call, and the scalar multiples by
+    254-step double-and-add ladders on the card: with A₀ = α + Σ w_i·A_i(τ)
+    and B₀ = β + Σ w_i·B_i(τ), s·A + r·B₁ − r·s·δ = s·A₀ + r·B₀ + r·s·δ, so
+    the five G1 multiples (r·δ, s·δ, r·s·δ, s·A₀, r·B₀) are one ladder of
+    five lanes, and s·δ on G2 one more.
+    Spans: `groth16.msm` over the MSMs and `groth16.ladders` over the
+    ladders and the adds around them (host time launching: neither waits
+    for the card), `groth16.to_host` over the decode, which waits."""
     G1, G2 = bn254.G1, bn254.G2
     msm_g1 = _msm_engine(G1, engine, msm_c, msm_lanes)
     msm_g2 = _msm_engine(G2, engine, msm_c, msm_lanes)
-    w_sc = FR.encode(w, mont=False, device=pk.device)
     first = lambda pt: tuple(a[0] for a in pt)  # noqa: E731
 
-    a_acc = G1.add(msm_g1(pk.a_g1, w_sc), first(pk.alpha_g1))
-    a_acc = G1.add(a_acc, _scale_first(G1, pk.delta_g1, r))
-    b2_acc = G2.add(msm_g2(pk.b_g2, w_sc), first(pk.beta_g2))
-    b2_acc = G2.add(b2_acc, _scale_first(G2, pk.delta_g2, s))
-    b1_acc = G1.add(msm_g1(pk.b_g1, w_sc), first(pk.beta_g1))
-    b1_acc = G1.add(b1_acc, _scale_first(G1, pk.delta_g1, s))
-    c_acc = msm_g1(pk.h_g1, h_sc)
-    if pk.k_g1 is not None:
-        c_acc = G1.add(c_acc, msm_g1(pk.k_g1, w_sc[pk.n_pub:]))
-    c_acc = G1.add(c_acc, _scale_point(G1, a_acc, s))
-    c_acc = G1.add(c_acc, _scale_point(G1, b1_acc, r))
-    c_acc = G1.add(c_acc, _scale_first(G1, pk.delta_g1, (-r * s) % P))
+    with metrics.timer("groth16.msm"):
+        w_sc = FR.from_mont(w_mont)
+        jobs = [(pk.a_g1, w_sc), (pk.b_g1, w_sc), (pk.h_g1, h_sc)]
+        if pk.k_g1 is not None:
+            jobs.append((pk.k_g1, w_sc[pk.n_pub:]))
+        a_w, b1_w, c_acc, *k_w = msm_g1(jobs)
+        if k_w:
+            c_acc = G1.add(c_acc, k_w[0])
+        (b2_w,) = msm_g2([(pk.b_g2, w_sc)])
+    with metrics.timer("groth16.ladders"):
+        a0 = G1.add(a_w, first(pk.alpha_g1))
+        b0 = G1.add(b1_w, first(pk.beta_g1))
+        delta = first(pk.delta_g1)
+        lanes = tuple(torch.stack(c) for c in zip(delta, delta, delta, a0, b0))
+        scaled = _scale_points(G1, lanes, [r, s, r * s, s, r])
+        r_d, s_d, rs_d, s_a, r_b = (tuple(a[i] for a in scaled) for i in range(5))
+        a_acc = G1.add(a0, r_d)
+        b1_acc = G1.add(b0, s_d)
+        c_acc = G1.add(G1.add(G1.add(c_acc, s_a), r_b), rs_d)
+        b2_acc = G2.add(G2.add(b2_w, first(pk.beta_g2)), _scale_first(G2, pk.delta_g2, s))
     one = lambda pt: tuple(a[None] for a in pt)  # noqa: E731
-    return Proof(a=bn254.g1_decode_host(one(a_acc)), b=bn254.g2_decode_host(one(b2_acc)),
-                 c=bn254.g1_decode_host(one(c_acc)))
+    with metrics.timer("groth16.to_host"):
+        return Proof(a=bn254.g1_decode_host(one(a_acc)), b=bn254.g2_decode_host(one(b2_acc)),
+                     c=bn254.g1_decode_host(one(c_acc)))
 
 
 def prove(pk: ProvingKey, builder: Builder, seed: bytes | None = None,
@@ -603,7 +643,7 @@ def prove(pk: ProvingKey, builder: Builder, seed: bytes | None = None,
     with metrics.timer("groth16.r1cs"):
         mats = _key_r1cs(pk, builder)
     with metrics.timer("groth16.h"):
-        w_mont = FR.encode(w, device=dev)
+        w_mont = FR.to_mont(FR.encode(w, mont=False, device=dev))
         if mesh is not None:
             h_sc = _h_scalars_dist(mesh, dom, w_mont, mats)[: n - 1]
         else:
@@ -612,7 +652,7 @@ def prove(pk: ProvingKey, builder: Builder, seed: bytes | None = None,
         return _prove_mesh(pk, w, r, s, h_sc, mesh, msm_c, msm_lanes)
     if engine == "fixed":
         return _prove_fixed(pk, w_mont, r, s, h_sc)
-    return _prove_legacy(pk, w, r, s, h_sc, engine, msm_c, msm_lanes)
+    return _prove_legacy(pk, w_mont, r, s, h_sc, engine, msm_c, msm_lanes)
 
 
 def verify(vk: VerifyingKey, public_inputs: list[int], proof: Proof) -> bool:

@@ -145,6 +145,13 @@ class Builder:
         self.enforce_eq(self.lincomb([pow(2, i, P) for i in range(n)], bs), a)
         return bs
 
+    def hint(self, fn, *lcs) -> LC:
+        """A private wire holding fn(values of `lcs`), with no constraint:
+        the gadget that allocates it constrains it (circom's `<--`), as
+        `gadgets.is_zero` does its inverse."""
+        vals = [self._val(x) for x in lcs]
+        return self.priv(None if None in vals else fn(*vals))
+
     def mux(self, bit: LC, a: LC, b: LC) -> tuple[LC, LC]:
         """Returns (bit ? b : a, bit ? a : b) with one multiplication."""
         t = self.mul(bit, b - a)

@@ -15,7 +15,9 @@ reference does (n < 2^17: the lane engine; n ≥ 2^17: `msm_sorted`):
     order, chunked prefix sums over the sorted sequence, and the window sum
     read off the prefixes at the bucket boundaries,
       Σ_j j·B_j = m·S_n − Σ_{j<m} S_{e_j},   e_j = #digits ≤ j, m = 2^(c−1),
-    folded into the Horner carry.
+    folded into the Horner carry.  The reference loops over the windows;
+    here `msm_sorted_many` takes the windows of several MSMs on one curve
+    side by side in each launch, and their Horner steps in one.
 
 Each `lax.scan` of the reference is a Python loop of whole-batch kernel
 launches here: every add and double is one K2 / K3 launch over G1 and one
@@ -33,6 +35,9 @@ from __future__ import annotations
 import torch
 
 from ..config import settings
+from ..runtime.metrics import metrics
+
+GATHER_BUDGET = 4 << 30   # bytes of gathered point rows `msm_sorted_many` takes a pass
 
 
 def _bcast(ident, shape):
@@ -238,105 +243,153 @@ def total_sum_wide(curve, pts, wide: int = 1 << 14):
 
 
 def _prefix_chunk_scan(curve, seq):
-    """Inclusive prefix sums of a sequence cut into C chunks of Q.
+    """Inclusive prefix sums of chunks of Q elements laid side by side.
 
     seq: tuple of (Q, C, ...) leaves, column c holding chunk c's elements
     in order (the reference takes the sequence itself and moves the axes;
     the port's caller gathers straight into this layout, so every step's
-    operand is contiguous).  Q steps of one C-wide add.  Returns
+    operand is contiguous; `msm_sorted_many` lays the chunks of G windows
+    side by side).  Q steps of one C-wide add.  Returns
       P   — (Q, C, ...): P[q, c] = sum of chunk c's elements 0..q
-      EXC — (C, ...):    sum of all elements before chunk c
       totals — (C, ...): each chunk's sum
-    so prefix(e) = EXC[e // Q] + (e % Q > 0 ? P[e % Q − 1, e // Q] : 0)."""
+    so, with EXC[c] the sum of all chunks before c of one sequence,
+    prefix(e) = EXC[e // Q] + (e % Q > 0 ? P[e % Q − 1, e // Q] : 0)."""
     acc = curve.identity_like(seq[0][0])
     steps = []
     for q in range(seq[0].shape[0]):
         acc = curve.add(acc, tuple(a[q] for a in seq))
         steps.append(acc)
     P = tuple(torch.stack(leaves) for leaves in zip(*steps))
-    return P, _hs_exclusive_prefix(curve, acc), acc
+    return P, acc
 
 
 # ---------------------------------------------------------------------------
 # The engines
 # ---------------------------------------------------------------------------
 
-def _gather_window(rows, widths, shapes, mag_w, sgn_w, C: int, Q: int):
-    """One window's points in sorted order: a stable sort by |digit| and
-    one row gather straight into the prefix scan's (Q, C) layout (element
-    c·Q + q of the sorted sequence goes to row q·C + c).  Returns the
-    gathered (x, y, z) leaves of (Q·C, ...), their negate flags and the
-    sorted keys."""
-    skeys, perm = torch.sort(mag_w, stable=True)
-    perm_qc = perm.view(C, Q).T.reshape(-1)
-    g = rows.index_select(0, perm_qc)                    # the big gather
+def _gather_window(rows, widths, shapes, mag_w, sgn_w, C: int, Q: int, offs=None):
+    """Windows' points in sorted order: a stable sort by |digit| per window
+    and one row gather straight into the prefix scan's (Q, G, C) layout
+    (element c·Q + q of window g's sorted sequence goes to row
+    (q·G + g)·C + c).  mag_w / sgn_w: (n,) for one window or (G, n) for G
+    windows, whose point rows start at `offs` (G,) in `rows` (0 without
+    it).  Returns the gathered (x, y, z) leaves of (Q·G·C, ...), their
+    negate flags and the sorted keys, shaped as mag_w."""
+    one = mag_w.dim() == 1
+    mag_g, sgn_g = (mag_w[None], sgn_w[None]) if one else (mag_w, sgn_w)
+    G = mag_g.shape[0]
+    skeys, perm = torch.sort(mag_g, dim=1, stable=True)
+    to_qgc = lambda t: t.view(G, C, Q).permute(2, 0, 1).reshape(-1)  # noqa: E731
+    at = perm if offs is None else perm + offs[:, None]
+    g = rows.index_select(0, to_qgc(at))                 # the big gather
     fwidth = sum(widths)
     xyz = tuple(a.contiguous() for a in _unflat_rows(g[:, :fwidth], widths, shapes))
-    return xyz, sgn_w.index_select(0, perm_qc), skeys
+    return xyz, to_qgc(sgn_g.gather(1, perm)), skeys[0] if one else skeys
 
 
 def _window_prefixes(curve, xyz, skeys, C: int, Q: int, m: int):
-    """The window's total and its boundary prefixes S_{e_j} for all m
+    """G windows' totals and their boundary prefixes S_{e_j} for all m
     buckets, from the chunked prefix sums of the signed, gathered points
-    `xyz` ((Q·C, ...) leaves in the (Q, C) layout).  Returns (total, s_j)
-    with s_j of (m, ...) leaves."""
-    P, EXC, totals = _prefix_chunk_scan(
-        curve, tuple(a.view((Q, C) + a.shape[1:]) for a in xyz))
-    total = curve.add(tuple(a[C - 1] for a in EXC), tuple(a[C - 1] for a in totals))
-    # S_{e_j} = EXC[e // Q] + (e % Q > 0 ? P[e % Q − 1, e // Q] : identity)
-    e = torch.searchsorted(skeys, torch.arange(m, dtype=skeys.dtype, device=skeys.device),
-                           right=True)
+    `xyz` ((Q·G·C, ...) leaves in the (Q, G, C) layout) and the sorted keys
+    (G, n).  Returns (total, s_j): total of (G, ...) leaves, s_j of
+    (m, G, ...)."""
+    G = skeys.shape[0]
+    P, totals = _prefix_chunk_scan(curve, tuple(a.view((Q, G * C) + a.shape[1:]) for a in xyz))
+    by_c = tuple(a.view((G, C) + a.shape[1:]).transpose(0, 1).contiguous() for a in totals)
+    EXC = _hs_exclusive_prefix(curve, by_c)                        # (C, G, ...)
+    total = curve.add(tuple(a[C - 1] for a in EXC), tuple(a[C - 1] for a in by_c))
+    # S_{e_j} = EXC[e // Q] + (e % Q > 0 ? P[e % Q − 1, e // Q] : identity),
+    # gathered in (m, G) order so that the sum over j runs along axis 0
+    keys = torch.arange(m, dtype=skeys.dtype, device=skeys.device).expand(G, m).contiguous()
+    e = torch.searchsorted(skeys, keys, right=True).T               # (m, G)
+    g = torch.arange(G, device=e.device)
     c_idx = torch.clamp(e // Q, 0, C - 1)
     r_idx = e - c_idx * Q
-    exc_j = tuple(a.index_select(0, c_idx) for a in EXC)
-    p_idx = torch.clamp(r_idx - 1, 0, Q - 1) * C + c_idx
-    p_j = tuple(a.reshape((Q * C,) + a.shape[2:]).index_select(0, p_idx) for a in P)
-    return total, curve.select(r_idx > 0, curve.add(exc_j, p_j), exc_j)
+    exc_j = tuple(a.reshape((C * G,) + a.shape[2:]).index_select(0, (c_idx * G + g).reshape(-1))
+                  for a in EXC)
+    p_idx = (torch.clamp(r_idx - 1, 0, Q - 1) * G + g) * C + c_idx
+    p_j = tuple(a.reshape((Q * G * C,) + a.shape[2:]).index_select(0, p_idx.reshape(-1))
+                for a in P)
+    s_j = curve.select(r_idx.reshape(-1) > 0, curve.add(exc_j, p_j), exc_j)
+    return total, tuple(a.view((m, G) + a.shape[1:]) for a in s_j)
 
 
 def msm_sorted(curve, points, scalars, c: int | None = None,
                gather_pad: int | None = None):
     """Σ scalars[i]·points[i], the window-serial sorted engine (BASELINE
-    config 4).
+    config 4): `msm_sorted_many` of one job.
 
     curve: a Weierstrass; points: projective tuple of [n, ...] leaves;
     scalars: canonical int32[n, 16] below 2^254.  c: window bits
     (OWSHEN_MSM_C, 16; the CPU tests use 8).  gather_pad: int32 words a
     point row is padded to for the per-window gather (OWSHEN_MSM_GATHER_PAD;
     none by default, the reference's 128 was the TPU's vreg width).  n is
-    padded to a power of two ≥ 128.  Returns one projective point.
+    padded to a power of two ≥ 128.  Returns one projective point."""
+    return msm_sorted_many(curve, [(points, scalars)], c, gather_pad)[0]
 
-    Per window: a stable sort by |digit|, one row gather into the prefix
-    scan's (Q, C) layout (`_gather_window`), one negation pass over the
-    gathered y (the reference fuses it into each scan step for XLA's sake;
-    one K1 launch per window does the same arithmetic), the chunked prefix
-    sums and the boundary prefixes S_{e_j} for all m buckets at once
-    (`_window_prefixes`), their sum, and the Horner step
-    2^c·acc + m·total − Σ S_{e_j} = 2^(c−1)·(2·acc + total) − Σ."""
+
+def msm_sorted_many(curve, jobs, c: int | None = None, gather_pad: int | None = None):
+    """[Σ scalars[i]·points[i] for (points, scalars) in jobs] on one curve,
+    the sorted engine over all jobs' windows together.
+
+    Every job is padded to the same power of two n ≥ 128 (identity points,
+    zero scalars); c and gather_pad as in `msm_sorted`.  The (window, job)
+    pairs are taken in groups whose gathered rows fit GATHER_BUDGET bytes,
+    each group one pass of whole-group launches: a stable sort by |digit|,
+    one row gather into the prefix scan's (Q, G, C) layout
+    (`_gather_window`), one negation of the gathered y (the reference
+    fuses it into each scan step for XLA's sake), the chunked prefix sums
+    and the boundary prefixes S_{e_j} for all m buckets
+    (`_window_prefixes`) and their sums.  The windows then meet, MSB first,
+    in one Horner over all jobs at once:
+    2^c·acc + m·total − Σ S_{e_j} = 2^(c−1)·(2·acc + total) − Σ.
+
+    Spans (host time launching; none waits for the card): `msm.gather`
+    (the digits, the sort, the gather, the negation) and `msm.prefix` (the
+    prefixes and their sums) a group, `msm.horner` the Horner."""
     cfg = settings()
     if c is None:
         c = cfg.msm_window_bits
     if gather_pad is None:
         gather_pad = cfg.msm_gather_pad
     K = curve.K
-    n = 1 << max(7, (scalars.shape[0] - 1).bit_length())
-    points, scalars = _pad_identity(curve, points, scalars, n)
+    J = len(jobs)
+    n = 1 << max(7, (max(sc.shape[0] for _, sc in jobs) - 1).bit_length())
     m = 1 << (c - 1)
     C = min(cfg.msm_chunk_c, max(n // 4, 1))
     Q = n // C
-    mag, sgn = _signed_digits(scalars, c)
-    rows, widths, shapes = _point_rows(points, gather_pad)
-    acc = curve.identity_like(points[0][0])
-    for w in reversed(range(mag.shape[0])):
-        (x, y, z), neg, skeys = _gather_window(rows, widths, shapes, mag[w], sgn[w], C, Q)
-        y = K.select(neg, K.neg(y), y)
-        total, s_j = _window_prefixes(curve, (x, y, z), skeys, C, Q, m)
-        s_sum = total_sum_wide(curve, s_j, wide=min(1 << 14, m))
-        t = curve.add(curve.double(acc), total)
-        for _ in range(c - 1):
-            t = curve.double(t)
-        acc = curve.add(t, curve.neg(s_sum))
-    return acc
+    with metrics.timer("msm.gather"):
+        padded = [_pad_identity(curve, pts, sc, n) for pts, sc in jobs]
+        flat = [_point_rows(pts, gather_pad) for pts, _ in padded]
+        rows = torch.cat([f[0] for f in flat]) if J > 1 else flat[0][0]
+        widths, shapes = flat[0][1], flat[0][2]
+        mag, sgn = _signed_digits(torch.cat([sc for _, sc in padded]), c)    # (W, J·n)
+        W = mag.shape[0]
+        # pair b = w·J + j: window w of job j, whose rows start at j·n
+        mag, sgn = mag.reshape(W * J, n), sgn.reshape(W * J, n)
+        offs = (torch.arange(J, device=mag.device) * n).repeat(W)
+    G = max(1, min(W * J, GATHER_BUDGET // (n * rows.shape[1] * rows.element_size())))
+    totals, sums = [], []
+    for b0 in range(0, W * J, G):
+        b1 = min(b0 + G, W * J)
+        with metrics.timer("msm.gather"):
+            (x, y, z), neg, skeys = _gather_window(rows, widths, shapes, mag[b0:b1],
+                                                   sgn[b0:b1], C, Q, offs[b0:b1])
+            y = K.select(neg, K.neg(y), y)
+        with metrics.timer("msm.prefix"):
+            total, s_j = _window_prefixes(curve, (x, y, z), skeys, C, Q, m)
+            totals.append(total)
+            sums.append(total_sum_wide(curve, s_j, wide=min(1 << 14, m)))
+    with metrics.timer("msm.horner"):
+        total, s_sum = (tuple(torch.cat(leaves).view((W, J) + leaves[0].shape[1:])
+                              for leaves in zip(*parts)) for parts in (totals, sums))
+        acc = curve.identity_like(total[0][0])
+        for w in reversed(range(W)):
+            t = curve.add(curve.double(acc), tuple(a[w] for a in total))
+            for _ in range(c - 1):
+                t = curve.double(t)
+            acc = curve.add(t, curve.neg(tuple(a[w] for a in s_sum)))
+    return [tuple(a[j] for a in acc) for j in range(J)]
 
 
 def msm(curve, points, scalars, c: int = 8, n_bits: int = 256, lanes: int = 1024):

@@ -12,6 +12,8 @@ owshen_tpu/protocol/pool.py.
     (Owshen.sol:70-73);
   * redeem: the escrow's checks, once per voucher;
   * pop_batch: the reorg path, undoing the last deposit batch;
+  * `CommitmentPool`: the tree, its guards and its undo log, which
+    `PrivacyPool` shares with the UTXO pool of protocol/utxo.py;
   * withdraw_batch / verify_vouchers_batch: the sequencer's batched paths,
     EdDSA over BabyJubJub on the card (curves/babyjubjub.py).
 
@@ -26,7 +28,7 @@ from ..circuits import pool as circuits
 from ..config import resolve_device, settings
 from ..curves import babyjubjub as jub
 from ..fields.field import FR, ints_to_tensor
-from ..groth16 import groth16, r1cs
+from ..groth16 import groth16
 from ..ops.keccak import keccak256_int
 from ..ops.merkle import SparseMerkleTree
 from ..oracle import eddsa as oeddsa
@@ -82,13 +84,15 @@ class Voucher:
     token: int = 0
 
 
-class PrivacyPool:
-    """Pool state = sparse Merkle tree of commitments on the card + host
-    sets for nullifiers and the deposit guards."""
+class CommitmentPool:
+    """What every pool of the port keeps: the sparse Merkle tree of
+    commitments on the card, its root history, the deposit guards, the
+    spent nullifiers, the per-token balances, and the inverse delta of
+    each batch appended to the tree.  `PrivacyPool` and
+    `protocol.utxo.UtxoPool` add their statements and their keys
+    (`pk`, `vk`)."""
 
-    def __init__(self, depth: int = 16, setup_seed: bytes = b"owshen-tpu-pool",
-                 seq_secret: int | None = None, keys: tuple | None = None,
-                 device=None):
+    def __init__(self, depth: int, device=None):
         self.depth = depth
         self.device = resolve_device(device)
         self.tree = SparseMerkleTree(depth, device=self.device)
@@ -96,24 +100,48 @@ class PrivacyPool:
         self.deposited: set[int] = set()   # L1 tx hashes (mint_tx.rs:17-22)
         self.minted: set[int] = set()      # mint ids (mint_tx.rs:24-30)
         self.nullifiers: set[int] = set()  # burn ids (burn_tx.rs:15-18)
-        self.executed: set[int] = set()    # L1-side isExecuted (Owshen.sol:68)
         # per-token escrow: a withdrawal may not exceed what was deposited
         # for its asset (burn_tx.rs:21-29)
         self.balances: dict[int, int] = {}
         self.roots: list[int] = [self.tree.root_int()]
-        if seq_secret is None:
-            seq_secret = keccak256_int(b"seq|" + setup_seed) % FR.p
-        self._seq_priv = seq_secret
-        self.seq_pub = oeddsa.to_pub(seq_secret)
         # per-batch inverse deltas (reference push_block / pop_block,
         # src/blockchain/mod.rs:284-315)
         self._undo: list[dict] = []
-        if keys is None:
-            keys = groth16.setup(circuits.withdraw_circuit(depth), seed=setup_seed,
-                                 device=self.device)
-        self.pk, self.vk = keys
-        if self.pk.device != self.device:
-            raise ValueError(f"proving key on {self.pk.device}, pool on {self.device}")
+
+    def _append(self, commitments: list[int], record: dict, span: str) -> list[int]:
+        """Insert commitments at the next leaves, timed as `span`; keep the
+        new root and the batch's inverse delta, `record` beside it (the
+        guards and credits `pop_batch` takes back).  Returns the leaves."""
+        idxs = list(range(self.next_index, self.next_index + len(commitments)))
+        if idxs and idxs[-1] >= (1 << self.depth):
+            raise PoolError("pool full")
+        rows = self.tree.touched_rows(idxs)
+        prior = self.tree.snapshot_rows(rows)
+        with metrics.timer(span):
+            self.tree.insert_ints(idxs, commitments)
+        self.next_index += len(commitments)
+        self.roots.append(self.tree.root_int())
+        self._undo.append({"rows": rows, "prior": prior, "count": len(commitments), **record})
+        return idxs
+
+    def _prove_on_key(self, values, full, span: str, **prove_args) -> tuple:
+        """The values-only pass `values()`, checked against every row the
+        proving key keeps (`groth16.satisfied`: on the card, over the key's
+        matrices), then `groth16.prove` timed as `span`; a key that
+        keeps no structure (a pool given its keys, or restored from a
+        checkpoint) gets the full synthesis `full()` at its first proof, and
+        `groth16.prove` keeps its structure with the key.  Returns (the
+        builder, the proof)."""
+        with metrics.timer("pool.synthesize"):
+            b = values()
+            if groth16.key_constraints(self.pk, b) is None:
+                b = full()
+        with metrics.timer("pool.check"):
+            satisfied = groth16.satisfied(self.pk, b)
+        if not satisfied:
+            raise PoolError("witness does not satisfy the circuit")
+        with metrics.timer(span):
+            return b, groth16.prove(self.pk, b, device=self.device, **prove_args)
 
     # ------------------------------------------------------------------
     # deposit (L1 → pool): mint_tx.rs:11-49
@@ -143,32 +171,23 @@ class PrivacyPool:
             seen_tx.add(txh)
             seen_mid.add(mid)
             mint_ids.append(mid)
-        idxs = list(range(self.next_index, self.next_index + len(commitments)))
-        if idxs and idxs[-1] >= (1 << self.depth):
-            raise PoolError("pool full")
-        rows = self.tree.touched_rows(idxs)
-        prior = self.tree.snapshot_rows(rows)
-        with metrics.timer("pool.deposit_insert"):
-            self.tree.insert_ints(idxs, commitments)
+        idxs = self._append(commitments, {
+            "tx_hashes": list(l1_tx_hashes), "mint_ids": mint_ids,
+            "amounts": list(amounts), "tokens": token_ids}, "pool.deposit_insert")
         metrics.inc("pool.deposits", len(commitments))
-        self.next_index += len(commitments)
         self.deposited.update(l1_tx_hashes)
         self.minted.update(mint_ids)
         for tid, amt in zip(token_ids, amounts):
             self.balances[tid] = self.balances.get(tid, 0) + amt
-        self.roots.append(self.tree.root_int())
-        self._undo.append({
-            "rows": rows, "prior": prior, "count": len(commitments),
-            "tx_hashes": list(l1_tx_hashes), "mint_ids": mint_ids,
-            "amounts": list(amounts), "tokens": token_ids})
         return idxs
 
     def pop_batch(self) -> int:
-        """Unwind the most recent deposit batch, the reorg path (reference
-        pop_block replays the persisted inverse delta,
-        src/blockchain/mod.rs:291-315): the tree rows get their prior
-        values back, the batch's guards and credits are removed and the
-        root history rewinds.  Returns the number of commitments unwound."""
+        """Unwind the most recent batch (a deposit, or a transaction's
+        outputs), the reorg path (reference pop_block replays the persisted
+        inverse delta, src/blockchain/mod.rs:291-315): the tree rows get
+        their prior values back, the batch's guards, credits and spent
+        nullifiers are removed and the root history rewinds.  Returns the
+        number of commitments unwound."""
         if not self._undo:
             raise PoolError("no batch to pop")
         rec = self._undo.pop()
@@ -176,6 +195,7 @@ class PrivacyPool:
         self.next_index -= rec["count"]
         self.deposited.difference_update(rec["tx_hashes"])
         self.minted.difference_update(rec["mint_ids"])
+        self.nullifiers.difference_update(rec.get("nullifiers", ()))
         for tid, amt in zip(rec["tokens"], rec["amounts"]):
             self.balances[tid] = self.balances.get(tid, 0) - amt
         self.roots.pop()
@@ -183,6 +203,27 @@ class PrivacyPool:
         if self.tree.root_int() != self.roots[-1]:
             raise AssertionError("rollback restored a different root")
         return rec["count"]
+
+
+class PrivacyPool(CommitmentPool):
+    """Pool state = sparse Merkle tree of commitments on the card + host
+    sets for nullifiers and the deposit guards."""
+
+    def __init__(self, depth: int = 16, setup_seed: bytes = b"owshen-tpu-pool",
+                 seq_secret: int | None = None, keys: tuple | None = None,
+                 device=None):
+        super().__init__(depth, device)
+        self.executed: set[int] = set()    # L1-side isExecuted (Owshen.sol:68)
+        if seq_secret is None:
+            seq_secret = keccak256_int(b"seq|" + setup_seed) % FR.p
+        self._seq_priv = seq_secret
+        self.seq_pub = oeddsa.to_pub(seq_secret)
+        if keys is None:
+            keys = groth16.setup(circuits.withdraw_circuit(depth), seed=setup_seed,
+                                 device=self.device)
+        self.pk, self.vk = keys
+        if self.pk.device != self.device:
+            raise ValueError(f"proving key on {self.pk.device}, pool on {self.device}")
 
     # ------------------------------------------------------------------
     # withdraw (pool → L1 voucher): burn_tx.rs:11-32 + Owshen.sol:66-78
@@ -324,20 +365,10 @@ class PrivacyPool:
                 root = self.tree.root_int()
             w = circuits.WithdrawWitness(secret=secret, salt=salt, amount=amount,
                                          index=index, siblings=sibs, token=_token_id(token))
-            with metrics.timer("pool.synthesize"):
-                b = circuits.withdraw_values(self.depth, w, root=root, recipient=recipient)
-                rows = groth16.key_constraints(self.pk, b)
-                if rows is None:
-                    b = circuits.withdraw_circuit(self.depth, w, root=root,
-                                                  recipient=recipient)
-                    rows = b.constraints
-            with metrics.timer("pool.check"):
-                satisfied = r1cs.satisfied(rows, b.witness())
-            if not satisfied:
-                raise PoolError("witness does not satisfy the circuit")
-            with metrics.timer("pool.prove_withdraw"):
-                proof = groth16.prove(self.pk, b, seed=seed, msm_c=msm_c,
-                                      msm_lanes=msm_lanes, device=self.device)
+            _, proof = self._prove_on_key(
+                lambda: circuits.withdraw_values(self.depth, w, root=root, recipient=recipient),
+                lambda: circuits.withdraw_circuit(self.depth, w, root=root, recipient=recipient),
+                "pool.prove_withdraw", seed=seed, msm_c=msm_c, msm_lanes=msm_lanes)
             with metrics.timer("pool.nullifier"):
                 nullifier = circuits.nullifier_of(secret, index)
         return proof, root, nullifier

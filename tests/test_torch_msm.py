@@ -18,6 +18,7 @@ from owshen_tpu.ops import msm as jmsm
 from owshen_tpu.oracle import curve as ocurve
 from owshen_tpu_torch.curves import bn254
 from owshen_tpu_torch.fields.field import FQ, FR
+from owshen_tpu_torch.groth16 import groth16
 from owshen_tpu_torch.ops import msm as pmsm
 
 torch.set_num_threads(1)
@@ -34,11 +35,13 @@ def one_point(pt):
     return bn254.g1_decode_host(tuple(a[None] for a in pt))
 
 
-def test_msm_sorted_matches_oracle():
+def test_msm_sorted_matches_oracle(monkeypatch):
     """c = 8 (the 2^22 engine's structure with a 128-bucket boundary batch)
-    on the inputs of tests/test_msm.py: zero, p − 1, 1 and 2^253 scalars.
-    A window's gather gives the same points from rows padded to the
-    reference's 128 words (OWSHEN_MSM_GATHER_PAD) as from the rows' own."""
+    on the inputs of tests/test_msm.py: zero, p − 1, 1 and 2^253 scalars;
+    `msm_sorted_many` of that job and a shorter one, its 64 (window, job)
+    pairs in passes of 24, 24 and 16.  A window's gather gives the same
+    points from rows padded to the reference's 128 words
+    (OWSHEN_MSM_GATHER_PAD) as from the rows' own."""
     rng = random.Random(11)
     n = 70
     pts = multiples([rng.randrange(1000) + 1 for _ in range(n)])
@@ -47,6 +50,12 @@ def test_msm_sorted_matches_oracle():
     dev_p, dev_s = bn254.g1_encode(pts), FR.encode(scalars, mont=False)
     got = pmsm.msm_sorted(G1, dev_p, dev_s, c=8)
     assert one_point(got) == ocurve.G1.msm(pts, scalars)
+    short = [rng.randrange(P) for _ in range(9)]
+    monkeypatch.setattr(pmsm, "GATHER_BUDGET", 24 * 128 * 48 * 4)   # 24 windows of rows
+    both = pmsm.msm_sorted_many(G1, [(dev_p, dev_s), (tuple(a[:9] for a in dev_p),
+                                                       FR.encode(short, mont=False))], c=8)
+    assert [one_point(pt) for pt in both] == [ocurve.G1.msm(pts, scalars),
+                                             ocurve.G1.msm(pts[:9], short)]
     dev_p, dev_s = pmsm._pad_identity(G1, dev_p, dev_s, 128)
     mag, sgn = pmsm._signed_digits(dev_s, 8)
     gathered = []
@@ -115,6 +124,10 @@ def test_scalar_mul_sum_reduce_to_affine():
     bits = torch.tensor([[(m >> (5 - i)) & 1 for m in mults] for i in range(6)])
     got = bn254.g1_decode_many(G1.scalar_mul(dev, bits))
     assert got == [ocurve.G1.mul(p, m) if p else None for p, m in zip(pts, mults)]
+    # the legacy prover's 254-step ladder, a scalar per lane
+    full = [P - 1, (1 << 253) + 5, 0, 12345, P + 2]
+    got = bn254.g1_decode_many(groth16._scale_points(G1, dev, full))
+    assert got == [ocurve.G1.mul(p, m % P) if p else None for p, m in zip(pts, full)]
     # sum_reduce over an odd count (the last row waits a level)
     want = None
     for p in pts:

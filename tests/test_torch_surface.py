@@ -256,15 +256,18 @@ def _params(fn):
 def surface(path):
     """({name: parameter names, or None for a class or constant} of a
     module's top level and its classes' members (Class.member; a
-    property's name maps to None), the names it imports, the attributes
-    its classes set on self (Class.attr))."""
+    property's name maps to None; a class has the members it inherits from
+    a class of the same module), the names it imports, the attributes its
+    classes set on self (Class.attr))."""
     names, imported, attrs = {}, set(), set()
+    bases = {}
     for node in ast.parse(path.read_text()).body:
         targets = []
         if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
             names[node.name] = _params(node)
         elif isinstance(node, ast.ClassDef):
             names[node.name] = None
+            bases[node.name] = [b.id for b in node.bases if isinstance(b, ast.Name)]
             for sub in node.body:
                 if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)):
                     prop = any(getattr(d, "attr", getattr(d, "id", "")) in
@@ -289,6 +292,12 @@ def surface(path):
             for e in (t.elts if isinstance(t, ast.Tuple) else [t]):
                 if isinstance(e, ast.Name):
                     names[e.id] = None
+    for cls, parents in bases.items():
+        for parent in parents:
+            for name, params in list(names.items()):
+                if name.startswith(parent + "."):
+                    names.setdefault(cls + name[len(parent):], params)
+            attrs |= {cls + a[len(parent):] for a in attrs if a.startswith(parent + ".")}
     return names, imported, attrs
 
 
