@@ -28,21 +28,28 @@
    P + (−P), the 8-torsion; the scalars 0, 1, 2^253, 2^254 − 1, p − 1), 36
    to 64 of them decoded against the host oracle; timed at the verify's
    4096 lanes (the add also at one) and the sign's 8192, the ladder's bound
-   from this run's scalars (the doubles and adds their bits need).
+   from this run's scalars (the doubles and adds their bits need).  The G1
+   and G2 ladders (g1_scalar_mul, g2_scalar_mul) at 1, 4, 5, 63, 65 and
+   8192 lanes on edge rows (a multiple with a seeded scalar, the identity,
+   the scalars 0, 1, r − 1, 2^254 − 1 on a point and on its negation, 2,
+   r, 2^253), 16 decoded against the host oracle; timed at the proofs'
+   widths (4 and 5 G1 lanes, one G2 point) and at 8192, bound by a double
+   and an add a step.
 3. Drives the depth-16 pool round trip through the entry points a user
    calls: PrivacyPool(depth=16) with a real setup of the 4431-constraint
    withdraw circuit, a deposit of 4096 commitments, the root against the
    host oracle, prove_withdraw, withdraw (pairing verify), the voucher,
    redeem, and the rejection of a second redeem and of a tampered public
    input.  Every kernel's launch count is zeroed just before and read just
-   after; K1–K5 and the G2 add and double must each be > 0.  The launches
+   after; K1–K5, the G2 add and double and the two ladders must each be
+   > 0, and the warm prove must make one launch of each ladder.  The launches
    of K1, K2 and the G2 add are counted by width, and each kernel is timed
    at each width the path used, so that its loss (launches × (device ms −
    bound)) is summed width by width.
    The warm prove's device-busy time is read from the profiler's timeline.
    Then the same withdraw statement through engine="sorted" (the path a
    key whose fixed tables exceed the budget takes) must give the fixed
-   engine's proof.
+   engine's proof, with one launch of each ladder.
 4. Vouchers and the sequencer, on the depth-16 pool of phase 3: 4096
    distinct seeded messages signed with the pool's sequencer key in one
    eddsa_sign_batch (64 seeded picks equal to oracle.eddsa.sign), all 4096
@@ -291,6 +298,12 @@ KERNELS = {
                "owshen_tpu/curves/weierstrass.py:110"),
     "g2_double": ("owshen_tpu_torch/kernels/csrc/g2.cu",
                   "owshen_tpu/curves/weierstrass.py:152"),
+    # the G1 and G2 ladders: no Pallas kernel, the JAX package's
+    # scalar_mul is a loop of add and double steps
+    "g1_scalar_mul": ("owshen_tpu_torch/kernels/csrc/g1.cu",
+                      "owshen_tpu/curves/weierstrass.py:195"),
+    "g2_scalar_mul": ("owshen_tpu_torch/kernels/csrc/g2.cu",
+                      "owshen_tpu/curves/weierstrass.py:195"),
     # K1's BabyJubJub point operations: they replace the JAX package's
     # K1-composed Edwards add and its lax.scan ladder, which XLA fuses
     "jub_add": ("owshen_tpu_torch/kernels/csrc/jub.cu",
@@ -327,13 +340,15 @@ WIDTH_KERNELS = LOSS_KERNELS + ("g2_double",)   # launches printed by width
 # the kernels the depth-16 round trip must launch (K6 and K7 run only in
 # their own phases)
 DEPTH16_KERNELS = ("mont_mul", "mod_add", "mod_sub", "g1_add", "g1_double", "g2_add",
-                   "g2_double", "poseidon_hash2", "ntt_butterfly")
+                   "g2_double", "g1_scalar_mul", "g2_scalar_mul", "poseidon_hash2",
+                   "ntt_butterfly")
 
 # device symbol of each kernel, as the profiler names it
 KERNEL_SYMBOLS = {"mont_mul": "field_op_kernel<0>", "mod_add": "field_op_kernel<1>",
                   "mod_sub": "field_op_kernel<2>", "g1_add": "g1_add_kernel",
                   "g1_double": "g1_dbl_kernel", "g2_add": "g2_add_kernel",
-                  "g2_double": "g2_dbl_kernel", "jub_add": "jub_add_kernel",
+                  "g2_double": "g2_dbl_kernel", "g1_scalar_mul": "g1_ladder_kernel",
+                  "g2_scalar_mul": "g2_ladder_kernel", "jub_add": "jub_add_kernel",
                   "jub_scalar_mul": "jub_ladder_kernel", "poseidon_hash2": "poseidon2_kernel",
                   "ntt_butterfly": "ntt_stage_kernel", "mimc_hash2": "mimc2_kernel",
                   "ntt_cols": "ntt_cols_kernel"}
@@ -533,6 +548,101 @@ def edge_points(torch, gen, n: int, dev, group: str = "g1"):
     want = [curve.add(a, b) for a, b in zip(real, qs)]
     want_dbl = [curve.add(a, a) for a in real]
     return p, q, want, want_dbl
+
+
+# The G1 and G2 ladders (g1_scalar_mul, g2_scalar_mul): the widths the
+# proofs launch (a withdraw proof's tails: 4 G1 lanes and one G2 point; the
+# legacy prover's: 5 and one), and LADDER_N lanes for throughput
+LADDER_BITS = 254
+LADDER_N = 8192
+LADDER_PATH_NS = {"g1_scalar_mul": (4, 5), "g2_scalar_mul": (1,)}
+LADDER_HEAD = 16            # edge rows, held against the host oracle
+
+
+def ladder_edge_inputs(torch, gen, n: int, dev, group: str):
+    """n ≥ LADDER_HEAD inputs (p, k) of the G1 or G2 ladder: on the first
+    rows a multiple of the generator with a seeded 254-bit scalar, the
+    identity, then the scalars 0, 1, r − 1, 2^254 − 1 (all ones), the same on
+    the next row's point, its negation, and 2, r, 2^253 (raw limbs, none
+    reduced); seeded multiples and scalars up to LADDER_HEAD, random
+    canonical coordinates and raw 256-bit scalars after.  With the host
+    oracle's (k mod 2^254)·p of the head rows."""
+    from owshen_tpu_torch.curves import bn254
+    from owshen_tpu_torch.fields.field import ints_to_tensor
+    from owshen_tpu_torch.oracle import curve as ocurve
+    from owshen_tpu_torch.oracle.field import P_FQ, P_FR
+
+    curve, point, encode, comps = {
+        "g1": (ocurve.G1, ocurve.G1_GEN, bn254.g1_encode, 1),
+        "g2": (ocurve.G2, ocurve.G2_GEN, bn254.g2_encode, 2)}[group]
+    rng = random.Random(0x1ADD)
+    pts = [curve.mul(point, rng.randrange(1, P_FR)) for _ in range(LADDER_HEAD)]
+    ks = [rng.randrange(1 << LADDER_BITS) for _ in range(LADDER_HEAD)]
+    pts[1] = None                                           # the identity
+    ks[2:10] = [0, 1, P_FR - 1, (1 << 254) - 1, (1 << 254) - 1, 2, P_FR, 1 << 253]
+    pts[6] = (pts[5][0], curve.K.neg(pts[5][1]))            # beside its negation
+    head_p = encode(pts)
+    tail = [rand_field(torch, gen, P_FQ, comps * (n - LADDER_HEAD), "cpu").view(
+        n - LADDER_HEAD, *head_p[0].shape[1:]) if n > LADDER_HEAD
+        else head_p[0][:0] for _ in range(3)]
+    p = tuple(torch.cat([h, t]).to(dev) for h, t in zip(head_p, tail))
+    k = torch.randint(0, 1 << 16, (n, 16), generator=gen, dtype=torch.int32)
+    k[:LADDER_HEAD] = ints_to_tensor(ks)
+    want = [curve.mul(a, v % (1 << LADDER_BITS)) if a else None for a, v in zip(pts, ks)]
+    return p, k.to(dev), want
+
+
+def point_ladder_checks(torch, dev, gen, record) -> dict:
+    """The G1 and G2 ladders against their plain twins on
+    ladder_edge_inputs: the twin once over LADDER_N lanes (its head rows
+    held against the host oracle), the kernel at every width the proofs
+    launch, at ragged widths and at LADDER_N against it; each timed at its
+    first proof width (`record`, with the twin there) and at LADDER_N.  The
+    bound charges every step a double and an add, as the kernels run."""
+    from owshen_tpu_torch.curves import bn254
+    from owshen_tpu_torch.kernels import g1, g2
+
+    out = {}
+    for name, group, kernel, plain, decode, in_rows, step_ops in (
+            ("g1_scalar_mul", "g1", g1.g1_scalar_mul, g1.g1_scalar_mul_plain,
+             bn254.g1_decode_many, 4, PER_ITEM["g1_double"][1] + PER_ITEM["g1_add"][1]),
+            ("g2_scalar_mul", "g2", g2.g2_scalar_mul, g2.g2_scalar_mul_plain,
+             bn254.g2_decode_many, 7, PER_ITEM["g2_double"][1] + PER_ITEM["g2_add"][1])):
+        p, k, want = ladder_edge_inputs(torch, gen, LADDER_N, dev, group)
+        cut = lambda m: (tuple(c[:m] for c in p), k[:m], LADDER_BITS)  # noqa: E731
+        t = time.time()
+        twin = plain(*cut(LADDER_N))
+        torch.cuda.synchronize()
+        twin_s = time.time() - t
+        if decode(tuple(c[:LADDER_HEAD] for c in twin)) != want:
+            fail(f"{name}: the plain twin differs from the host oracle on the edge rows")
+        cases = {f"n={m}": max_abs_err(torch, kernel(*cut(m)), tuple(c[:m] for c in twin))
+                 for m in (*LADDER_PATH_NS[name], 1, 63, 65, LADDER_N)}
+        print(f"{name} max |diff| by case: " + json.dumps(cases), flush=True)
+        for case, err in cases.items():
+            if err != 0:
+                fail(f"{name} ({case}): kernel disagrees with its plain version")
+        lane_work = lambda m: (m * (in_rows + comps_out(group)) * ROW,  # noqa: E731
+                               m * LADDER_BITS * step_ops)
+        n = LADDER_PATH_NS[name][0]
+        record(name, n, lambda: kernel(*cut(n)), lambda: plain(*cut(n)), cases[f"n={n}"], 10,
+               work=lane_work(n))
+        sym = KERNEL_SYMBOLS[name]
+        ms_by_n = {f"n={m}": device_ms(torch, lambda: kernel(*cut(m)), 10, sym)
+                   for m in (*LADDER_PATH_NS[name], LADDER_N)}
+        bound_by_n = {f"n={m}": bound(*lane_work(m)) for m in (*LADDER_PATH_NS[name], LADDER_N)}
+        print(f"{name} device ms: " + json.dumps(ms_by_n) + "; bound ms: "
+              + json.dumps(bound_by_n) + f"; the twin over {LADDER_N} lanes {twin_s:.2f} s",
+              flush=True)
+        out[name] = {"cases": cases, "ms_by_n": ms_by_n, "bound_by_n": bound_by_n,
+                     "twin_wide_s": twin_s}
+    return out
+
+
+def comps_out(group: str) -> int:
+    """Rows of 64 B a ladder writes a lane: three coordinates of one or two
+    Fq components."""
+    return 3 if group == "g1" else 6
 
 
 # K1's BabyJubJub kernels (kernels/jub.py): the verify's 4096 lanes, the
@@ -897,6 +1007,10 @@ def check_kernels(torch, dev) -> dict:
               f"by {b_by}", flush=True)
     results["g2_add"]["sass"] = sass_imad(build, "g2", "g2_add_kernel")
 
+    # the G1 and G2 ladders at the proofs' widths, ragged widths and 8192
+    for name, extra in point_ladder_checks(torch, dev, gen, record).items():
+        results[name].update(extra)
+
     # K1's BabyJubJub add and ladder on edge rows and the 8-torsion at 1 to
     # 2^16 lanes; timed at the verify's 4096 and the sign's 8192
     for name, extra in jub_kernel_checks(torch, dev, gen, record).items():
@@ -1112,6 +1226,9 @@ def round_trip_depth16(torch, dev) -> dict:
     for name in DEPTH16_KERNELS:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the depth-16 path")
+    ladders = {k: per_stage["warm_prove"][k] for k in LADDER_PATH_NS}
+    if ladders != {k: 1 for k in LADDER_PATH_NS}:
+        fail(f"the warm prove's tails made {ladders} ladder launches, not one of each")
     print("d16 launches by width, {width: [launches, items]}: "
           + json.dumps({k: widths[k] for k in WIDTH_KERNELS}), flush=True)
     return {"stages": stages, "launches": counts, "launches_by_stage": per_stage,
@@ -1141,6 +1258,9 @@ def sorted_withdraw(torch, dev, pool, builder) -> dict:
     out["launches"] = nonzero(kernels.launch_counts())
     if (srt.a, srt.b, srt.c) != (fixed.a, fixed.b, fixed.c):
         fail("depth-16: the sorted engine's proof differs from the fixed engine's")
+    ladders = {k: out["launches"].get(k, 0) for k in LADDER_PATH_NS}
+    if ladders != {k: 1 for k in LADDER_PATH_NS}:
+        fail(f"the sorted engine made {ladders} ladder launches, not one of each")
     print(f"d16 prove through engine='sorted' == fixed ({out['sorted_s']:.2f} s, fixed "
           f"{out['fixed_s']:.2f} s); launches " + json.dumps(out["launches"]), flush=True)
     return out, fixed
@@ -1736,7 +1856,8 @@ def msm_path_checks(torch, pts, scalars) -> tuple[dict, set]:
         acc = G1.add(acc, tuple(a[i] for a in seq))
     row = tuple(a[q] for a in seq)
     check("g1_add", C, f" (chunk step {q})", g1.g1_add(acc, row), g1.g1_add_plain(acc, row))
-    total, s_j = pmsm._window_prefixes(G1, xyz, skeys, C, Q, m)
+    total, s_j = pmsm._window_prefixes(G1, xyz, skeys[None], C, Q, m)    # one window
+    total, s_j = tuple(a[0] for a in total), tuple(a[:, 0] for a in s_j)
     del xyz, seq
     h = m // 2
     lo, hi = tuple(a[:h] for a in s_j), tuple(a[h:] for a in s_j)
@@ -1780,9 +1901,17 @@ def msm_phase(torch, dev) -> dict:
     if out["affine"] != want:
         fail("MSM 2^22: msm differs from (Σ s_i·k_i mod r)·G")
     out["path_checks"], held = msm_path_checks(torch, pts, scalars)
+    # the widths of msm_sorted_many's batched windows (the gather of all
+    # windows' y, the batched prefix scan, the Horner), held on the
+    # operands the run gave them
     unheld = sorted({(k, int(wd)) for k in MSM_KERNELS for wd in out["widths"][k]} - held)
-    if unheld:
-        fail(f"MSM 2^22: kernel widths not held against their plain versions: {unheld}")
+    with kernels.capture_operands() as kept:
+        run()
+    torch.cuda.synchronize()
+    out["path_checks"].update(mesh_path_checks(
+        torch, "2^22", {pair: kept[pair] for pair in unheld},
+        {k: [wd for name, wd in unheld if name == k] for k in MSM_KERNELS}, held, phase="msm"))
+    del kept
     out["s"] = [timed(torch, run)[1] for _ in range(2)]
     out["mpoints_per_s"] = [n / t / 1e6 for t in out["s"]]
     wall, busy, events = device_busy(torch, run)
@@ -2018,7 +2147,7 @@ def mimc_phase(torch, dev) -> dict:
 # column and row transforms), K6 (the MiMC tree)
 MESH_STAGE_KERNELS = {
     "prove": ("mont_mul", "mod_add", "mod_sub", "g1_add", "g1_double", "g2_add", "g2_double",
-              "ntt_butterfly"),
+              "g1_scalar_mul", "g2_scalar_mul", "ntt_butterfly"),
     "DistNtt": ("mont_mul", "ntt_butterfly"),
     "msm_dist": MSM_KERNELS,
     "mimc root": ("mimc_hash2",),
@@ -2544,6 +2673,9 @@ def main() -> int:
         "kernel_checks": {k: {f: kern[k][f] for f in ("cases", "sass")}
                           for k in ("g1_add", "g2_add", "poseidon_hash2")},
         "g2_double_cases": kern["g2_double"]["cases"],
+        "ladder_checks": {k: {f: kern[k][f] for f in ("cases", "ms_by_n", "bound_by_n",
+                                                      "twin_wide_s")}
+                          for k in LADDER_PATH_NS},
         "jub_checks": {k: {f: kern[k][f] for f in ("cases", "sign_n_ms", "twin_wide_s")}
                        for k in ("jub_add", "jub_scalar_mul")},
         "jub_add_n1_ms": kern["jub_add"]["n1_ms"],

@@ -28,6 +28,7 @@ import torch
 from ..config import resolve_device
 from ..fields.field import FR, ints_to_tensor, tensor_to_ints
 from ..kernels import jub as jub_kernels
+from ..kernels.field_ops import limbs_of_msb_bits
 from ..ops.hash import poseidon
 
 F = FR
@@ -145,15 +146,7 @@ def scalar_mul(p, bits):
     to_le_bits().rev(), mod.rs:71): per bit a double, and an add where the
     bit is set.  The bits are packed into canonical limbs on their device
     and the ladder runs in one `jub_scalar_mul` launch."""
-    n_bits = bits.shape[0]
-    if n_bits > jub_kernels.MAX_BITS:
-        raise ValueError(f"{n_bits} bits: the ladder takes at most {jub_kernels.MAX_BITS}")
-    lsb = (bits != 0).flip(0).to(torch.int32)
-    lsb = torch.cat([lsb, lsb.new_zeros((jub_kernels.MAX_BITS - n_bits,) + lsb.shape[1:])])
-    weights = (1 << torch.arange(16, dtype=torch.int32, device=lsb.device)).view(
-        (1, 16) + (1,) * (lsb.dim() - 1))
-    limbs = (lsb.view((16, 16) + lsb.shape[1:]) * weights).sum(1, dtype=torch.int32)
-    return jub_kernels.jub_scalar_mul(p, limbs.movedim(0, -1), n_bits)
+    return jub_kernels.jub_scalar_mul(p, limbs_of_msb_bits(bits), bits.shape[0])
 
 
 def scalar_mul_int(p, scalars_canonical):

@@ -7,7 +7,10 @@ Points are (X, Y, Z) tuples of field tensors batched over leading axes.
 Every add and double is one kernel launch: over Fq (BN254 G1) K2 / K3
 (kernels/g1.py), over Fq2 (G2) g2_add / g2_double (kernels/g2.py), where
 the JAX package composes the G2 formulas from Fq2 ops that XLA fuses
-(owshen_tpu/curves/weierstrass.py).  The rest (`to_affine`, `eq`,
+(owshen_tpu/curves/weierstrass.py).  A scalar multiplication is one
+launch of the curve's ladder (g1_scalar_mul, g2_scalar_mul), all its steps
+in registers, where the reference scans a double and an add a bit.  The
+rest (`to_affine`, `eq`,
 `on_curve_affine`) is K1 launches through the field ops (FQ or FQ2), a
 formula's independent products stacked into one."""
 
@@ -18,6 +21,7 @@ import torch
 from ..fields.field import FQ
 from ..fields.fq2 import FQ2
 from ..kernels import g1, g2
+from ..kernels.field_ops import limbs_of_msb_bits
 
 
 class Weierstrass:
@@ -30,9 +34,11 @@ class Weierstrass:
     def __init__(self, K, b3):
         if K is FQ:
             kernel_b3, self._add, self._double = g1.B3, g1.g1_add, g1.g1_double
+            self._ladder = g1.g1_scalar_mul
             given = int(b3) % K.p
         elif K is FQ2:
             kernel_b3, self._add, self._double = g2.B3, g2.g2_add, g2.g2_double
+            self._ladder = g2.g2_scalar_mul
             given = tuple(int(c) % K.p for c in b3)
         else:
             raise ValueError("the port's point kernels are over BN254 Fq (FQ) and Fq2 (FQ2)")
@@ -67,17 +73,18 @@ class Weierstrass:
 
     def scalar_mul(self, p, bits):
         """Batched double-and-add over the MSB-first bit array bits[n_bits,
-        ...], branchless: every step's addend (bit ? p : identity) selected
-        at once, then per bit one double and one add.  Complete formulas
-        make adding the identity exact, so this is the reference's select
-        after each add with a third of the launches."""
-        ident = self.identity_like(p[0])
-        addends = self.select(bits != 0, tuple(a.expand(bits.shape[:1] + a.shape) for a in p),
-                              ident)
-        acc = ident
-        for k in range(bits.shape[0]):
-            acc = self.add(self.double(acc), tuple(a[k] for a in addends))
-        return acc
+        ...] (n_bits ≤ 256), branchless: per bit one double and one add of
+        (bit ? p : identity).  Complete formulas make adding the identity
+        exact, so this is the reference's select after each add.  The bits
+        are packed into canonical limbs on their device and the ladder runs
+        in one launch (`scalar_mul_limbs`)."""
+        return self.scalar_mul_limbs(p, limbs_of_msb_bits(bits), bits.shape[0])
+
+    def scalar_mul_limbs(self, p, scalars, n_bits: int = 254):
+        """k·p for canonical scalars k (int32[..., 16] limbs, one a point of
+        p's batch), from bits n_bits − 1 … 0 of each: one launch of the
+        curve's ladder, `scalar_mul`'s steps."""
+        return self._ladder(p, scalars, n_bits)
 
     def to_affine(self, p):
         """(X/Z, Y/Z) with the identity mapped to (0, 0): one inversion of Z

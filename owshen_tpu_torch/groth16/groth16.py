@@ -11,7 +11,8 @@ owshen_tpu/groth16/groth16.py, with the prover's hot path on the card.
     gather and one batched fold for the five G1 MSMs (K2), the G2 MSM on
     the G2 add kernel, and the assembly adds — or, by choice or when the
     tables do not fit, the Pippenger engines of ops/msm.py with scalar
-    ladders for the randomizer terms;
+    ladders for the randomizer terms; the randomizer tails (r·δ, s·α, r·β,
+    r·s·δ; s·δ₂) in one G1 and one G2 ladder launch (`_tails`);
   * over a mesh (parallel/): the h pipeline's NTTs across the shards
     (DistNtt) and every commitment MSM sharded (msm_dist, the lane
     engine on each shard);
@@ -292,36 +293,22 @@ def restore_fixed_tables(pk: ProvingKey, g1: FixedMsmGroup, b2: FixedMsm) -> Non
     object.__setattr__(pk, "_fixed", _FixedTables(pk, restored=(g1, b2)))
 
 
-def _tail_host(pk: ProvingKey) -> dict:
-    """The fixed tail points (α, β, δ)₁ / (β, δ)₂ as host affine ints."""
-    th = getattr(pk, "_tail_host_cache", None)
-    if th is None:
-        first = lambda pt: tuple(a[:1] for a in pt)  # noqa: E731
-        th = {
-            "alpha1": bn254.g1_decode_host(first(pk.alpha_g1)),
-            "beta1": bn254.g1_decode_host(first(pk.beta_g1)),
-            "delta1": bn254.g1_decode_host(first(pk.delta_g1)),
-            "beta2": bn254.g2_decode_host(first(pk.beta_g2)),
-            "delta2": bn254.g2_decode_host(first(pk.delta_g2)),
-        }
-        object.__setattr__(pk, "_tail_host_cache", th)
-    return th
-
-
 def _tails(pk: ProvingKey, r: int, s: int):
-    """The randomizer tails from the host's affine (α, β, δ)₁ / (β, δ)₂,
-    five oracle scalar multiplications, encoded on the key's device:
-    (tail_a = α + r·δ, tail_c = s·α + r·β + r·s·δ) as a two-point G1
-    batch, and tail_b2 = β₂ + s·δ₂ as one G2 point."""
-    th = _tail_host(pk)
-    dev = pk.device
-    oG1, oG2 = ocurve.G1, ocurve.G2
-    tail_a = oG1.add(th["alpha1"], oG1.mul(th["delta1"], r % P))
-    tail_c = oG1.add(oG1.add(oG1.mul(th["alpha1"], s % P), oG1.mul(th["beta1"], r % P)),
-                     oG1.mul(th["delta1"], (r * s) % P))
-    tail_b2 = oG2.add(th["beta2"], oG2.mul(th["delta2"], s % P))
-    return (bn254.g1_encode([tail_a, tail_c], device=dev),
-            tuple(a[0] for a in bn254.g2_encode([tail_b2], device=dev)))
+    """The randomizer tails from the key's own (α, β, δ)₁ / (β, δ)₂ on its
+    device: r·δ, s·α, r·β and r·s·δ in one G1 ladder launch, s·δ₂ in one G2
+    launch, then (tail_a = α + r·δ, tail_c = s·α + r·β + r·s·δ) as a
+    two-point G1 batch and tail_b2 = β₂ + s·δ₂ as one G2 point.  Nothing
+    waits for the card."""
+    G1, G2 = bn254.G1, bn254.G2
+    alpha = pk.alpha_g1
+    scaled = _scale_points(G1, G1.cat([pk.delta_g1, alpha, pk.beta_g1, pk.delta_g1]),
+                           [r, s, r, r * s])
+    pair = G1.add(G1.cat([alpha, tuple(a[1:2] for a in scaled)]),
+                  tuple(a[0:3:2] for a in scaled))                    # α + r·δ, s·α + r·β
+    tail_c = G1.add(tuple(a[1:2] for a in pair), tuple(a[3:4] for a in scaled))
+    tails_g1 = G1.cat([tuple(a[0:1] for a in pair), tail_c])
+    first = lambda pt: tuple(a[0] for a in pt)  # noqa: E731
+    return tails_g1, G2.add(first(pk.beta_g2), _scale_first(G2, pk.delta_g2, s))
 
 
 def _assemble(a_w, a_sw, b1_rw, k_w, h_h, b2_w, tails_g1, tail_b2) -> Proof:
@@ -518,21 +505,15 @@ def _resolve_engine(pk: ProvingKey, mesh, engine: str | None) -> str:
     return engine
 
 
-def _scale_point(curve, p, k: int):
-    """k · p for one projective point: the 254-bit double-and-add ladder."""
-    return tuple(a[0] for a in _scale_points(curve, tuple(a[None] for a in p), [k]))
-
-
 def _scale_points(curve, pts, ks):
     """ks[i] · pts[i] for projective points with (len(ks), ...) leaves:
-    one 254-bit double-and-add ladder with a scalar per lane."""
-    bits = FR.to_bits_le(ints_to_tensor([k % P for k in ks], pts[0].device), 254)
-    return curve.scalar_mul(pts, bits.flip(1).T)
+    one launch of the curve's 254-bit ladder, a scalar per lane."""
+    return curve.scalar_mul_limbs(pts, ints_to_tensor([k % P for k in ks], pts[0].device))
 
 
 def _scale_first(curve, pts, k: int):
     """k · pts[0] (the single point of a batch of one)."""
-    return _scale_point(curve, tuple(a[0] for a in pts), k)
+    return tuple(a[0] for a in _scale_points(curve, tuple(a[:1] for a in pts), [k]))
 
 
 def _msm_engine(curve, engine: str, msm_c: int, msm_lanes: int):

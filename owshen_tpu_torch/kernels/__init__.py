@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels of the port (K1–K7, with K1's G2 and
-BabyJubJub point operations) and their wrappers.
+BabyJubJub point operations, and the G1, G2 and BabyJubJub ladders) and
+their wrappers.
 
 Every wrapper launches its kernel on CUDA tensors (or raises) and runs its
 plain PyTorch twin on CPU tensors; `launch_counts()` reads how often each
@@ -26,8 +27,10 @@ WRAPPERS = {
     "mod_sub": field_ops.mod_sub,
     "g1_add": g1.g1_add,
     "g1_double": g1.g1_double,
+    "g1_scalar_mul": g1.g1_scalar_mul,
     "g2_add": g2.g2_add,
     "g2_double": g2.g2_double,
+    "g2_scalar_mul": g2.g2_scalar_mul,
     "jub_add": jub.jub_add,
     "jub_scalar_mul": jub.jub_scalar_mul,
     "poseidon_hash2": poseidon.poseidon_hash2,
@@ -42,8 +45,10 @@ PLAIN = {
     "mod_sub": field_ops.mod_sub_plain,
     "g1_add": g1.g1_add_plain,
     "g1_double": g1.g1_double_plain,
+    "g1_scalar_mul": g1.g1_scalar_mul_plain,
     "g2_add": g2.g2_add_plain,
     "g2_double": g2.g2_double_plain,
+    "g2_scalar_mul": g2.g2_scalar_mul_plain,
     "jub_add": jub.jub_add_plain,
     "jub_scalar_mul": jub.jub_scalar_mul_plain,
     "poseidon_hash2": poseidon.poseidon_hash2_plain,

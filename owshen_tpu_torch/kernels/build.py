@@ -42,10 +42,12 @@ SIGNATURES = {
     "g1": {
         "g1_add_launch": (_P,) * 9 + (_LL, _P),
         "g1_double_launch": (_P,) * 6 + (_LL, _P),
+        "g1_scalar_mul_launch": (_P,) * 7 + (_LL, _I, _P),
     },
     "g2": {
         "g2_add_launch": (_P,) * 9 + (_LL, _P),
         "g2_double_launch": (_P,) * 6 + (_LL, _P),
+        "g2_scalar_mul_launch": (_P,) * 7 + (_LL, _I, _P),
         "g2_consts_upload": (_P,),
     },
     "jub": {

@@ -54,6 +54,31 @@
 // A two-lane form (lane 0: Y², Z², then t2·z3 and t0·y3; lane 1: Y·Z, X·Y,
 // then Z3 and t0·XY) was slower at the fixed-table build's 8192 points on
 // the H100 (PERF.md §6) and was not kept.
+//
+// g1_scalar_mul, the ladder: k·P for a scalar k per lane, all n_bits steps
+// of the double-and-add ladder in one launch, MSB first.  It replaces no
+// Pallas kernel: the reference's ladder (owshen_tpu/curves/weierstrass.py
+// scalar_mul) is a loop of K2 and K3 steps, and so was the port's, 2·254
+// launches a ladder, each moving the accumulator through device memory.
+// Here the accumulator and the base stay in registers for every step.
+// Every step does the double and the add, the addend selected as
+// bit ? P : identity (0 : 1 : 0) with no branch, so the kernel's time does
+// not depend on the scalars (the Groth16 randomizers r and s).
+//
+// What bounds it: the proofs launch it over 4 or 5 lanes, too few threads
+// for the card, and a lane's 254 steps are a chain of 20 products each,
+// so the chain's latency sets the time, not the rate.  So four threads run
+// a point (K3's layout), holding the same values: each group of
+// independent products is spread over them, one product a thread, and the
+// results are broadcast to the four with __shfl_sync.  The double is K3's
+// two rounds of four (dbl_adds between them); the add, RCB15 algorithm 7 as
+// K2 forms it, takes its 12 products in three rounds of four:
+//  - X1X2, Y1Y2, Z1Z2, (X1 + Y1)(X2 + Y2);
+//  - (Y1 + Z1)(Y2 + Z2), (X1 + Z1)(X2 + Z2), t1b·z3, 3t0·t3 (the last two
+//    need only the first round);
+//  - t3·t1b, t4·y3, y3·3t0, z3·t4.
+// A step is then a chain of 5 products where one thread a point waits on
+// 20.  The identity's Y, Montgomery 1, is formed from 2p (mont_one_lazy).
 #include "field.cuh"
 
 namespace {
@@ -191,6 +216,159 @@ unsigned int n_blocks(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
 
+// ---------------------------------------------------------------------------
+// The ladder: four threads a point, every value held by all four
+// ---------------------------------------------------------------------------
+
+// The threads of one point: `sub` is this thread's place among them and
+// `mask` names them in its warp
+struct Group {
+  int sub;
+  unsigned mask;
+};
+
+__device__ __forceinline__ Group group_of_thread() {
+  const int lane = threadIdx.x & 31;
+  const int first = lane - lane % kDblLanes;
+  return Group{lane % kDblLanes, ((1u << kDblLanes) - 1) << first};
+}
+
+// r[k] = a[k]·b[k] for k < 4, every thread of the group ending with all
+// four (r[k] must not alias any a or b): thread s forms product s and the
+// results are broadcast from the four
+__device__ __forceinline__ void products4(uint32_t* const (&r)[kDblLanes],
+                                          const uint32_t* const (&a)[kDblLanes],
+                                          const uint32_t* const (&b)[kDblLanes],
+                                          const Group& g, const FieldConsts& F) {
+  uint32_t x[8], y[8], t[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    x[j] = a[0][j];
+    y[j] = b[0][j];
+  }
+#pragma unroll
+  for (int k = 1; k < kDblLanes; ++k) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      x[j] = g.sub == k ? a[k][j] : x[j];
+      y[j] = g.sub == k ? b[k][j] : y[j];
+    }
+  }
+  fmul_lazy(t, x, y, F);
+#pragma unroll
+  for (int k = 0; k < kDblLanes; ++k) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r[k][j] = __shfl_sync(g.mask, t[j], k, kDblLanes);
+  }
+}
+
+// r = 2·p (RCB15 algorithm 9, K3's two rounds), lazy; r must not alias p
+__device__ __forceinline__ void g1_dbl_group(Pt& r, const Pt& p, const Group& g,
+                                             const FieldConsts& F) {
+  uint32_t t0[8], zz[8], t1[8], xy[8];
+  products4({t0, zz, t1, xy}, {p.y, p.z, p.y, p.x}, {p.y, p.z, p.z, p.y}, g, F);
+  uint32_t z3[8], t2[8], y3[8];
+  dbl_adds(t0, zz, z3, t2, y3, F);
+  uint32_t u[8], v[8], w[8];
+  products4({u, v, r.z, w}, {t2, t0, t1, t0}, {z3, y3, z3, xy}, g, F);
+  fadd_lazy(r.y, u, v, F);          // Y3 = t2·z3 + t0·y3
+  fadd_lazy(r.x, w, w, F);          // X3 = 2·(t0·XY)
+}
+
+// r = p + q (RCB15 algorithm 7, K2's values) in three rounds of four
+// products, lazy; r must not alias p or q
+__device__ __forceinline__ void g1_add_group(Pt& r, const Pt& p, const Pt& q, const Group& g,
+                                             const FieldConsts& F) {
+  uint32_t sxy1[8], sxy2[8], t0[8], t1[8], t2[8], m[8];
+  fadd_lazy(sxy1, p.x, p.y, F);
+  fadd_lazy(sxy2, q.x, q.y, F);
+  products4({t0, t1, t2, m}, {p.x, p.y, p.z, sxy1}, {q.x, q.y, q.z, sxy2}, g, F);
+  uint32_t syz1[8], syz2[8], sxz1[8], sxz2[8], t3[8], u[8];
+  fadd_lazy(syz1, p.y, p.z, F);
+  fadd_lazy(syz2, q.y, q.z, F);
+  fadd_lazy(sxz1, p.x, p.z, F);
+  fadd_lazy(sxz2, q.x, q.z, F);
+  fadd_lazy(u, t0, t1, F);
+  fsub_lazy(t3, m, u, F);           // X1Y2 + X2Y1
+  uint32_t three_t0[8], t2b[8], z3[8], t1b[8];
+  fadd_lazy(three_t0, t0, t0, F);
+  fadd_lazy(three_t0, three_t0, t0, F);
+  fmul9_lazy(t2b, t2, F);
+  fadd_lazy(z3, t1, t2b, F);
+  fsub_lazy(t1b, t1, t2b, F);
+  uint32_t m4[8], m5[8], u3[8], u5[8];
+  products4({m4, m5, u3, u5}, {syz1, sxz1, t1b, three_t0}, {syz2, sxz2, z3, t3}, g, F);
+  uint32_t t4[8], t5[8], y3[8];
+  fadd_lazy(u, t1, t2, F);
+  fsub_lazy(t4, m4, u, F);          // Y1Z2 + Y2Z1
+  fadd_lazy(u, t0, t2, F);
+  fsub_lazy(t5, m5, u, F);          // X1Z2 + X2Z1
+  fmul9_lazy(y3, t5, F);
+  uint32_t u0[8], u1[8], u2[8], u4[8];
+  products4({u0, u1, u2, u4}, {t3, t4, y3, z3}, {t1b, y3, three_t0, t4}, g, F);
+  fsub_lazy(r.x, u0, u1, F);        // t3·t1b − t4·y3
+  fadd_lazy(r.y, u2, u3, F);        // y3·3t0 + t1b·z3
+  fadd_lazy(r.z, u4, u5, F);        // z3·t4 + 3t0·t3
+}
+
+// R mod p (Montgomery 1) as a lazy value: 2^256 − 4p, which lies in
+// [p, 2p) for BN254's moduli (5p < 2^256 < 6p)
+__device__ __forceinline__ void mont_one_lazy(uint32_t r[8], const FieldConsts& F) {
+  unsigned long long c = 1;         // −x = ~x + 1
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t four_p = (F.p2[j] << 1) | (j ? F.p2[j - 1] >> 31 : 0u);
+    c += static_cast<uint32_t>(~four_p);
+    r[j] = static_cast<uint32_t>(c);
+    c >>= 32;
+  }
+}
+
+// acc = Σ bit_i·2^i·P over i < n_bits, bit i of row i's scalar k (16
+// canonical 16-bit limbs); acc starts at the identity (0 : 1 : 0).  Thread
+// c < 3 of a point stores coordinate c, made canonical once
+__global__ void __launch_bounds__(kThreads)
+g1_ladder_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+                 const int32_t* __restrict__ z, const int32_t* __restrict__ k,
+                 int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz,
+                 long long rows, int n_bits) {
+  const long long i =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / kDblLanes;
+  if (i >= rows) return;            // a point's threads leave together
+  const Group g = group_of_thread();
+  const FieldConsts& F = kField[1];
+  Pt base, acc, dbl, addend;
+  load_pt(base, x, y, z, i);
+  uint32_t one[8];
+  mont_one_lazy(one, F);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    acc.x[j] = acc.z[j] = 0;
+    acc.y[j] = one[j];
+  }
+  const int32_t* limbs = k + i * 16;
+  for (int bit = n_bits - 1; bit >= 0; --bit) {
+    g1_dbl_group(dbl, acc, g, F);
+    const bool set = (__ldg(limbs + (bit >> 4)) >> (bit & 15)) & 1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      addend.x[j] = set ? base.x[j] : 0u;
+      addend.y[j] = set ? base.y[j] : one[j];
+      addend.z[j] = set ? base.z[j] : 0u;
+    }
+    g1_add_group(acc, dbl, addend, g, F);
+  }
+  uint32_t* const coord[3] = {acc.x, acc.y, acc.z};
+  int32_t* const out[3] = {ox, oy, oz};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    if (g.sub == c) {
+      fcanon(coord[c], coord[c], F);
+      store_elem(out[c] + i * 16, coord[c]);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int g1_add_launch(const int32_t* x1, const int32_t* y1, const int32_t* z1,
@@ -209,5 +387,15 @@ extern "C" int g1_double_launch(const int32_t* x1, const int32_t* y1, const int3
   if (n <= 0) return 0;
   g1_dbl_kernel<<<n_blocks(kDblLanes * n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x1, y1, z1, ox, oy, oz, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int g1_scalar_mul_launch(const int32_t* x, const int32_t* y, const int32_t* z,
+                                    const int32_t* k, int32_t* ox, int32_t* oy, int32_t* oz,
+                                    long long n, int n_bits, void* stream) {
+  if (n <= 0) return 0;
+  if (n_bits < 0 || n_bits > 256) return static_cast<int>(cudaErrorInvalidValue);
+  g1_ladder_kernel<<<n_blocks(kDblLanes * n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, y, z, k, ox, oy, oz, n, n_bits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,6 +52,20 @@
 // even, so a pair never straddles a warp).  A thread past the end runs on a
 // dummy point (row 0 or 1) and stores nothing, so every shuffle sees a
 // converged warp.
+//
+// g2_scalar_mul, the ladder: k·P for a scalar k per point, all n_bits steps
+// of the double-and-add ladder in one launch, MSB first, on the same two
+// lanes a point and the same g2_dbl_lazy and g2_add_lazy, which hand each
+// result coordinate to a sink: the add and double kernels store it (Out),
+// the ladder keeps it in registers (Keep).  It replaces no Pallas kernel:
+// the reference's ladder (owshen_tpu/curves/weierstrass.py scalar_mul) is a
+// loop of G2 adds and doubles, and so was the port's, 2·254 launches a
+// ladder.  Every step does the double and the add, the addend selected as
+// bit ? P : identity (0 : 1 : 0) with no branch, so the time does not
+// depend on the scalar (the Groth16 randomizer s).  The proofs launch it
+// over one point: two threads, whose chain of a step's 23 Fq2 products
+// (two lazy Fq products each, back to back in a lane) sets the time; two
+// lanes halve that chain against one thread a point.
 #include "field.cuh"
 
 __constant__ uint32_t kB3[2][8];  // b3 = 3·b' in Montgomery form: c0, c1
@@ -111,16 +125,28 @@ __device__ __forceinline__ void f2mul_b3(uint32_t r[8], const uint32_t a[8], boo
 }
 
 // Where a thread's results go: row i of each output array, stored only by
-// a live thread.  Each coordinate is made canonical and stored as soon as
-// it is known, so that it holds no registers through the rest
+// a live thread.  Each coordinate (c = 0, 1, 2 for X, Y, Z) is made
+// canonical and stored as soon as it is known, so that it holds no
+// registers through the rest
 struct Out {
   int32_t *x, *y, *z;
   long long i;
   bool live;
 
-  __device__ __forceinline__ void put(int32_t* dst, uint32_t v[8], const FieldConsts& F) const {
+  __device__ __forceinline__ void put(int c, uint32_t v[8], const FieldConsts& F) const {
     fcanon(v, v, F);
-    if (live) store_elem(dst + i * 16, v);
+    if (live) store_elem((c == 0 ? x : c == 1 ? y : z) + i * 16, v);
+  }
+};
+
+// The ladder's sink: coordinate c is copied, lazy, into a point in registers
+struct Keep {
+  Pt& r;
+
+  __device__ __forceinline__ void put(int c, const uint32_t v[8], const FieldConsts&) const {
+    uint32_t* const dst = c == 0 ? r.x : c == 1 ? r.y : r.z;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[j] = v[j];
   }
 };
 
@@ -128,8 +154,10 @@ struct Out {
 // owshen_tpu/curves/weierstrass.py Weierstrass.add in its order, except
 // that the six sums X1 + Y1, … of the inputs are all formed right after
 // t0, t1, t2, so that the inputs are dead before the next products.
-// Inputs and every value below 2q
-__device__ __forceinline__ void g2_add_lazy(const Out& o, const Pt& p, const Pt& q, bool odd,
+// Inputs and every value below 2q.  p and q are read before the first
+// result is put, so the sink may write over them
+template <class Sink>
+__device__ __forceinline__ void g2_add_lazy(const Sink& o, const Pt& p, const Pt& q, bool odd,
                                             const FieldConsts& F) {
   uint32_t t0[8], t1[8], t2[8], t3[8], t4[8], t5[8], u[8], v[8];
   f2mul(t0, p.x, q.x, odd, F);
@@ -161,19 +189,21 @@ __device__ __forceinline__ void g2_add_lazy(const Out& o, const Pt& p, const Pt&
   f2mul(u, t3, t1b, odd, F);
   f2mul(v, t4, y3, odd, F);
   fsub_lazy(u, u, v, F);
-  o.put(o.x, u, F);
+  o.put(0, u, F);
   f2mul(u, y3, three_t0, odd, F);
   f2mul(v, t1b, z3, odd, F);
   fadd_lazy(u, u, v, F);
-  o.put(o.y, u, F);
+  o.put(1, u, F);
   f2mul(u, z3, t4, odd, F);
   f2mul(v, three_t0, t3, odd, F);
   fadd_lazy(u, u, v, F);
-  o.put(o.z, u, F);
+  o.put(2, u, F);
 }
 
-// RCB15 algorithm 9 (a = 0), the operation order of Weierstrass.double
-__device__ __forceinline__ void g2_dbl_lazy(const Out& o, const Pt& p, bool odd,
+// RCB15 algorithm 9 (a = 0), the operation order of Weierstrass.double.
+// p is read after Z3 and Y3 are put: the sink must not write over it
+template <class Sink>
+__device__ __forceinline__ void g2_dbl_lazy(const Sink& o, const Pt& p, bool odd,
                                             const FieldConsts& F) {
   uint32_t t0[8], t1[8], t2[8], z3[8], x3[8], y3[8], u[8];
   f2mul(t0, p.y, p.y, odd, F);
@@ -186,17 +216,17 @@ __device__ __forceinline__ void g2_dbl_lazy(const Out& o, const Pt& p, bool odd,
   f2mul(x3, t2, z3, odd, F);
   fadd_lazy(y3, t0, t2, F);
   f2mul(u, t1, z3, odd, F);
-  o.put(o.z, u, F);
+  o.put(2, u, F);
   fadd_lazy(t1, t2, t2, F);
   fadd_lazy(t2, t1, t2, F);  // 3·b3·Z²
   fsub_lazy(t0, t0, t2, F);
   f2mul(u, t0, y3, odd, F);
   fadd_lazy(u, x3, u, F);
-  o.put(o.y, u, F);
+  o.put(1, u, F);
   f2mul(t1, p.x, p.y, odd, F);
   f2mul(x3, t0, t1, odd, F);
   fadd_lazy(x3, x3, x3, F);
-  o.put(o.x, x3, F);
+  o.put(0, x3, F);
 }
 
 // Registers: ptxas gives the add 164 under a cap of 168 (three blocks of
@@ -239,6 +269,60 @@ g2_dbl_kernel(const int32_t* __restrict__ x1, const int32_t* __restrict__ y1,
   g2_dbl_lazy(Out{ox, oy, oz, i, live}, p, odd, F);
 }
 
+// R mod q (Montgomery 1) as a lazy value: 2^256 − 4q, which lies in
+// [q, 2q) (5q < 2^256 < 6q)
+__device__ __forceinline__ void mont_one_lazy(uint32_t r[8], const FieldConsts& F) {
+  unsigned long long c = 1;         // −x = ~x + 1
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t four_q = (F.p2[j] << 1) | (j ? F.p2[j - 1] >> 31 : 0u);
+    c += static_cast<uint32_t>(~four_q);
+    r[j] = static_cast<uint32_t>(c);
+    c >>= 32;
+  }
+}
+
+// acc = Σ bit_i·2^i·P over i < n_bits, bit i of the point's scalar k (16
+// canonical 16-bit limbs), from the identity (0 : 1 : 0); rows = 2·points.
+// Registers: no cap, as the launch is one or a few points
+__global__ void __launch_bounds__(kThreads)
+g2_ladder_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+                 const int32_t* __restrict__ z, const int32_t* __restrict__ k,
+                 int32_t* __restrict__ ox, int32_t* __restrict__ oy, int32_t* __restrict__ oz,
+                 long long rows, int n_bits) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool live = i < rows;
+  const long long row = live ? i : (i & 1);   // a dummy point past the end
+  const bool odd = threadIdx.x & 1;
+  const FieldConsts& F = kField[1];
+  Pt base, acc, dbl, addend;
+  load_pt(base, x, y, z, row);
+  uint32_t one[8];                  // this lane's component of Fq2's 1
+  mont_one_lazy(one, F);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    one[j] = odd ? 0u : one[j];
+    acc.x[j] = acc.z[j] = 0;
+    acc.y[j] = one[j];
+  }
+  const int32_t* limbs = k + (row >> 1) * 16;   // both lanes read the point's scalar
+  for (int bit = n_bits - 1; bit >= 0; --bit) {
+    g2_dbl_lazy(Keep{dbl}, acc, odd, F);
+    const bool set = (__ldg(limbs + (bit >> 4)) >> (bit & 15)) & 1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      addend.x[j] = set ? base.x[j] : 0u;
+      addend.y[j] = set ? base.y[j] : one[j];
+      addend.z[j] = set ? base.z[j] : 0u;
+    }
+    g2_add_lazy(Keep{acc}, dbl, addend, odd, F);
+  }
+  const Out o{ox, oy, oz, i, live};
+  o.put(0, acc.x, F);
+  o.put(1, acc.y, F);
+  o.put(2, acc.z, F);
+}
+
 unsigned int n_blocks(long long rows) {
   return static_cast<unsigned int>((rows + kThreads - 1) / kThreads);
 }
@@ -262,5 +346,16 @@ extern "C" int g2_double_launch(const int32_t* x1, const int32_t* y1, const int3
   if (n <= 0) return 0;
   g2_dbl_kernel<<<n_blocks(2 * n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x1, y1, z1, ox, oy, oz, 2 * n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// n: points, k: int32[n, 16] canonical scalars
+extern "C" int g2_scalar_mul_launch(const int32_t* x, const int32_t* y, const int32_t* z,
+                                    const int32_t* k, int32_t* ox, int32_t* oy, int32_t* oz,
+                                    long long n, int n_bits, void* stream) {
+  if (n <= 0) return 0;
+  if (n_bits < 0 || n_bits > 256) return static_cast<int>(cudaErrorInvalidValue);
+  g2_ladder_kernel<<<n_blocks(2 * n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, y, z, k, ox, oy, oz, 2 * n, n_bits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -205,6 +205,29 @@ def from_lm(t: torch.Tensor, shape) -> torch.Tensor:
     return t.T.to(torch.int32).reshape(shape)
 
 
+MAX_BITS = 256   # the ladders' longest scalar (jub_scalar_mul, g1_ / g2_scalar_mul)
+
+
+def check_bits(n_bits: int) -> int:
+    n_bits = int(n_bits)
+    if not 0 <= n_bits <= MAX_BITS:
+        raise ValueError(f"n_bits = {n_bits}: the ladder takes 0 to {MAX_BITS} bits")
+    return n_bits
+
+
+def limbs_of_msb_bits(bits: torch.Tensor) -> torch.Tensor:
+    """MSB-first bits[n_bits, ...] (n_bits ≤ MAX_BITS; any nonzero value a
+    set bit) -> the canonical scalars they spell, int32[..., 16] limbs on
+    the bits' device: the ladders' operand."""
+    n_bits = check_bits(bits.shape[0])
+    lsb = (bits != 0).flip(0).to(torch.int32)
+    lsb = torch.cat([lsb, lsb.new_zeros((MAX_BITS - n_bits,) + lsb.shape[1:])])
+    weights = (1 << torch.arange(16, dtype=torch.int32, device=lsb.device)).view(
+        (1, 16) + (1,) * (lsb.dim() - 1))
+    limbs = (lsb.view((16, 16) + lsb.shape[1:]) * weights).sum(1, dtype=torch.int32)
+    return limbs.movedim(0, -1)
+
+
 PLAIN_CHUNK = 1 << 15   # columns per plain call: keeps int64 temporaries in cache
 
 

@@ -1,8 +1,9 @@
-"""K2 / K3: complete projective G1 addition and doubling over BN254 Fq.
+"""K2 / K3: complete projective G1 addition and doubling over BN254 Fq,
+and the double-and-add ladder with a scalar per lane.
 
 Points are (X, Y, Z) tuples of int32[..., 16] Montgomery tensors; the
-identity is (0 : 1 : 0).  `g1_add` / `g1_double` launch csrc/g1.cu (one
-thread per point, any N) on CUDA tensors, or run their plain twins on CPU
+identity is (0 : 1 : 0).  `g1_add` / `g1_double` / `g1_scalar_mul` launch
+csrc/g1.cu (any N) on CUDA tensors, or run their plain twins on CPU
 tensors.  Each wrapper counts its launches in `.launches` and `.widths`.
 
 The plain twins follow Renes–Costello–Batina 2015 algorithms 7 and 9 for
@@ -10,7 +11,8 @@ a = 0 in the operation order of the JAX package's
 owshen_tpu/curves/weierstrass.py, on the limb-major int64 helpers of
 kernels/field_ops.py.  `add_lm_pts` / `double_lm_pts` take the field's ops
 as an argument, so the G2 twins of kernels/g2.py run the same formulas
-over Fq2.
+over Fq2; `ladder_lm_pts` runs both, a step each, as the ladder twin of
+both curves.
 """
 
 from __future__ import annotations
@@ -20,12 +22,14 @@ import time
 import torch
 
 from . import build
-from .field_ops import (add_lm, broadcast_shape, count_launch, from_lm, keep_operands,
-                        kernel_operand, mul_lm, on_cpu, PLAIN_CHUNK, plain_chunked, plain_consts,
-                        stream_handle, sub_lm, to_lm, zero_counts)
+from ..oracle.field import P_FQ
+from .field_ops import (add_lm, broadcast_shape, check_bits, count_launch, from_lm,
+                        keep_operands, kernel_operand, L, limb_rows, mul_lm, on_cpu, PLAIN_CHUNK,
+                        plain_chunked, plain_consts, stream_handle, sub_lm, to_lm, zero_counts)
 
 
 B3 = 9   # 3·b of y² = x³ + 3: K2, K3 and FqOps.mul_b3 multiply by it as 2·2·2·x + x
+MONT_ONE = (1 << 256) % P_FQ   # 1 in Montgomery form: the identity's Y
 
 
 class FqOps:
@@ -62,6 +66,16 @@ class FqOps:
     @staticmethod
     def split(t, k):
         return t.chunk(k, dim=1)
+
+    @staticmethod
+    def select(cond, a, b):
+        """a where cond (N,) holds, else b, column by column"""
+        return torch.where(cond, a, b)
+
+    def identity(self, n):
+        """(0 : 1 : 0) over n columns"""
+        zero = torch.zeros((L, n), dtype=torch.int64, device=self.c.p_rows.device)
+        return zero, limb_rows(MONT_ONE, zero.device).expand(L, n), zero
 
 
 def add_lm_pts(F, p, q):
@@ -104,6 +118,20 @@ def double_lm_pts(F, p):
     return X3, Y3, Z3
 
 
+def ladder_lm_pts(F, base, k, n_bits: int):
+    """Σ_{i < n_bits} bit_i(k)·2^i·base over the field ops F, a canonical
+    scalar k (N, 16) a column: from bit n_bits − 1 down, a double and an add
+    of (bit ? base : identity) each step, as the kernels do."""
+    ident = F.identity(k.shape[0])
+    i = torch.arange(n_bits - 1, -1, -1, device=k.device)
+    bits = ((k[:, i // 16] >> (i % 16)) & 1).bool().T            # (n_bits, N), MSB first
+    acc = ident
+    for bit in bits:
+        addend = tuple(F.select(bit, b, e) for b, e in zip(base, ident))
+        acc = add_lm_pts(F, double_lm_pts(F, acc), addend)
+    return acc
+
+
 def broadcast_coords(*coords):
     shape = broadcast_shape(*(c.shape for c in coords))
     return [c.expand(shape) for c in coords], shape
@@ -130,16 +158,29 @@ def g1_double_plain(p):
     return tuple(o.reshape(shape) for o in out)
 
 
-def _launch(entry: str, wrapper, coords, t0: int):
+def g1_scalar_mul_plain(p, scalars, n_bits: int):
+    n_bits = check_bits(n_bits)
+    coords, shape = broadcast_coords(*p, scalars)
+    rows = [c.reshape(-1, 16) for c in coords]
+
+    def run(*r):
+        acc = ladder_lm_pts(FqOps(r[0].device), [to_lm(x) for x in r[:3]], r[3], n_bits)
+        return tuple(from_lm(c, (-1, 16)) for c in acc)
+
+    out = plain_chunked(run, rows[0].shape[0], *rows, chunk=PLAIN_CHUNK // 4)
+    return tuple(o.reshape(shape) for o in out)
+
+
+def _launch(entry: str, wrapper, coords, t0: int, extra=(), kept=None):
     pts = tuple(tuple(coords[i:i + 3]) for i in range(0, len(coords), 3))
     coords, shape = broadcast_coords(*coords)
     ops = [kernel_operand(c) for c in coords]
     n = ops[0].shape[0]
     dev = ops[0].device
-    keep_operands(wrapper, n, *pts)
+    keep_operands(wrapper, n, *(pts if kept is None else kept))
     outs = [torch.empty((n, 16), dtype=torch.int32, device=dev) for _ in range(3)]
     lib = build.library("g1")
-    rc = getattr(lib, entry)(*(t.data_ptr() for t in ops + outs), n, stream_handle(dev))
+    rc = getattr(lib, entry)(*(t.data_ptr() for t in ops + outs), n, *extra, stream_handle(dev))
     build.check(rc, entry)
     count_launch(wrapper, n, t0)
     return tuple(o.reshape(shape) for o in outs)
@@ -161,4 +202,16 @@ def g1_double(p):
     return _launch("g1_double_launch", g1_double, p, t0)
 
 
-zero_counts(g1_add, g1_double)
+def g1_scalar_mul(p, scalars, n_bits: int):
+    """Σ_{i < n_bits} bit_i(k)·2^i·p for each lane's canonical scalar k
+    (int32[..., 16] limbs): n_bits steps of the double-and-add ladder, MSB
+    first, in one launch."""
+    t0 = time.perf_counter_ns()
+    n_bits = check_bits(n_bits)
+    if on_cpu(*p, scalars):
+        return g1_scalar_mul_plain(p, scalars, n_bits)
+    return _launch("g1_scalar_mul_launch", g1_scalar_mul, (*p, scalars), t0, (n_bits,),
+                   (p, scalars, n_bits))
+
+
+zero_counts(g1_add, g1_double, g1_scalar_mul)

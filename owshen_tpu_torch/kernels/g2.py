@@ -1,11 +1,13 @@
 """K1's G2 point operations: complete projective G2 addition and doubling
-over BN254 Fq2 = Fq[u]/(u² + 1), b3 = 3·b' = 9/(9 + u).
+over BN254 Fq2 = Fq[u]/(u² + 1), b3 = 3·b' = 9/(9 + u), and the
+double-and-add ladder with a scalar per point.
 
 Points are (X, Y, Z) tuples of int32[..., 2, 16] Montgomery tensors
 (component 0 = c0, 1 = c1, the JAX package's layout); the identity is
-(0 : 1 : 0).  `g2_add` / `g2_double` launch csrc/g2.cu (two threads per
-point, any N) on CUDA tensors, or run their plain twins on CPU tensors.
-Each wrapper counts its launches in `.launches` and `.widths` (in points).
+(0 : 1 : 0).  `g2_add` / `g2_double` / `g2_scalar_mul` launch csrc/g2.cu
+(two threads per point, any N) on CUDA tensors, or run their plain twins
+on CPU tensors.  Each wrapper counts its launches in `.launches` and
+`.widths` (in points).
 
 The plain twins run kernels/g1.py's RCB15 formulas (algorithms 7 and 9,
 a = 0, the operation order of owshen_tpu/curves/weierstrass.py) over
@@ -25,10 +27,10 @@ import torch
 from ..oracle.curve import B_G2
 from ..oracle.field import P_FQ
 from . import build
-from .field_ops import (add_lm, count_launch, from_lm, keep_operands, kernel_operand, L, MASK,
-                        mul_lm, on_cpu, PLAIN_CHUNK, plain_chunked, plain_consts, stream_handle,
-                        sub_lm, to_lm, zero_counts)
-from .g1 import add_lm_pts, broadcast_coords, double_lm_pts
+from .field_ops import (add_lm, broadcast_shape, check_bits, count_launch, from_lm,
+                        keep_operands, kernel_operand, L, MASK, mul_lm, on_cpu, PLAIN_CHUNK,
+                        plain_chunked, plain_consts, stream_handle, sub_lm, to_lm, zero_counts)
+from .g1 import add_lm_pts, broadcast_coords, double_lm_pts, FqOps, ladder_lm_pts
 
 B3 = ((3 * B_G2[0]) % P_FQ, (3 * B_G2[1]) % P_FQ)   # 3·b' as (c0, c1)
 
@@ -64,6 +66,16 @@ class Fq2Ops:
     @staticmethod
     def split(x, k):
         return list(zip(x[0].chunk(k, dim=1), x[1].chunk(k, dim=1)))
+
+    @staticmethod
+    def select(cond, a, b):
+        """a where cond (N,) holds, else b, column by column"""
+        return torch.where(cond, a[0], b[0]), torch.where(cond, a[1], b[1])
+
+    def identity(self, n):
+        """(0 : 1 : 0) over n columns: Fq's identity in c0, zeros in c1"""
+        zero, one, _ = FqOps(self.c.p_rows.device).identity(n)
+        return (zero, zero), (one, zero), (zero, zero)
 
     def _both(self, fn, a, b):
         """fn on both components in one call"""
@@ -136,16 +148,45 @@ def g2_double_plain(p):
     return _plain(double_lm_pts, p)
 
 
-def _launch(entry: str, wrapper, coords, t0: int):
+def _ladder_operands(p, scalars):
+    """p's coordinates and the scalars broadcast to one batch of points:
+    (coords, scalars, the coordinates' shape)."""
+    batch = broadcast_shape(*(c.shape[:-2] for c in p), scalars.shape[:-1])
+    coords, shape = _g2_coords([c.expand(batch + c.shape[-2:]) for c in p])
+    return coords, scalars.expand(batch + scalars.shape[-1:]), shape
+
+
+def g2_scalar_mul_plain(p, scalars, n_bits: int):
+    n_bits = check_bits(n_bits)
+    coords, scalars, shape = _ladder_operands(p, scalars)
+    rows = [c.reshape(-1, 2, L) for c in coords] + [scalars.reshape(-1, L)]
+
+    def run(*r):
+        base = [(to_lm(x[:, 0]), to_lm(x[:, 1])) for x in r[:3]]
+        acc = ladder_lm_pts(Fq2Ops(r[0].device), base, r[3], n_bits)
+        return tuple(torch.stack([from_lm(c0, (-1, L)), from_lm(c1, (-1, L))], dim=1)
+                     for c0, c1 in acc)
+
+    out = plain_chunked(run, rows[0].shape[0], *rows, chunk=PLAIN_CHUNK // 16)
+    return tuple(o.reshape(shape) for o in out)
+
+
+def _launch(entry: str, wrapper, coords, t0: int, scalars=None, extra=()):
     pts = tuple(tuple(coords[i:i + 3]) for i in range(0, len(coords), 3))
-    coords, shape = _g2_coords(coords)
-    ops = [kernel_operand(c) for c in coords]         # (2N, 16): c0, c1 of each point
+    if scalars is None:
+        coords, shape = _g2_coords(coords)
+        kept, ks = pts, []
+    else:
+        kept = (tuple(coords), scalars, *extra)
+        coords, scalars, shape = _ladder_operands(coords, scalars)
+        ks = [kernel_operand(scalars)]
+    ops = [kernel_operand(c) for c in coords] + ks    # (2N, 16): c0, c1 of each point
     n = ops[0].shape[0] // 2
     dev = ops[0].device
-    keep_operands(wrapper, n, *pts)
+    keep_operands(wrapper, n, *kept)
     outs = [torch.empty((2 * n, L), dtype=torch.int32, device=dev) for _ in range(3)]
     lib = build.library("g2")
-    rc = getattr(lib, entry)(*(t.data_ptr() for t in ops + outs), n, stream_handle(dev))
+    rc = getattr(lib, entry)(*(t.data_ptr() for t in ops + outs), n, *extra, stream_handle(dev))
     build.check(rc, entry)
     count_launch(wrapper, n, t0)
     return tuple(o.reshape(shape) for o in outs)
@@ -167,4 +208,15 @@ def g2_double(p):
     return _launch("g2_double_launch", g2_double, p, t0)
 
 
-zero_counts(g2_add, g2_double)
+def g2_scalar_mul(p, scalars, n_bits: int):
+    """Σ_{i < n_bits} bit_i(k)·2^i·p for each point's canonical scalar k
+    (int32[..., 16] limbs, over p's batch): n_bits steps of the
+    double-and-add ladder, MSB first, in one launch."""
+    t0 = time.perf_counter_ns()
+    n_bits = check_bits(n_bits)
+    if on_cpu(*p, scalars):
+        return g2_scalar_mul_plain(p, scalars, n_bits)
+    return _launch("g2_scalar_mul_launch", g2_scalar_mul, p, t0, scalars, (n_bits,))
+
+
+zero_counts(g2_add, g2_double, g2_scalar_mul)

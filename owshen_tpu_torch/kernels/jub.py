@@ -24,14 +24,13 @@ import torch
 
 from ..oracle.field import P_FR
 from . import build
-from .field_ops import (add_lm, count_launch, from_lm, keep_operands, kernel_operand, L, limb_rows,
-                        mul_lm, on_cpu, PLAIN_CHUNK, plain_chunked, plain_consts, stream_handle,
-                        sub_lm, to_lm, zero_counts)
+from .field_ops import (add_lm, check_bits, count_launch, from_lm, keep_operands, kernel_operand,
+                        L, limb_rows, MAX_BITS, mul_lm, on_cpu, PLAIN_CHUNK, plain_chunked,
+                        plain_consts, stream_handle, sub_lm, to_lm, zero_counts)
 from .g1 import broadcast_coords
 
 A = 168700
 D = 168696
-MAX_BITS = 256
 
 
 def _mont(v: int) -> int:
@@ -108,15 +107,8 @@ def jub_add_plain(p, q):
     return tuple(o.reshape(shape) for o in out)
 
 
-def _check_bits(n_bits: int) -> int:
-    n_bits = int(n_bits)
-    if not 0 <= n_bits <= MAX_BITS:
-        raise ValueError(f"n_bits = {n_bits}: the ladder takes 0 to {MAX_BITS} bits")
-    return n_bits
-
-
 def jub_scalar_mul_plain(p, scalars, n_bits: int):
-    n_bits = _check_bits(n_bits)
+    n_bits = check_bits(n_bits)
     rows, shape = _rows((*p, scalars))
 
     def run(*r):
@@ -164,7 +156,7 @@ def jub_scalar_mul(p, scalars, n_bits: int):
     (int32[..., 16] limbs): n_bits steps of the double-and-add ladder, MSB
     first, in one launch."""
     t0 = time.perf_counter_ns()
-    n_bits = _check_bits(n_bits)
+    n_bits = check_bits(n_bits)
     if on_cpu(*p, scalars):
         return jub_scalar_mul_plain(p, scalars, n_bits)
     return _launch("jub_scalar_mul_launch", jub_scalar_mul, (*p, scalars), (n_bits,),

@@ -19,6 +19,10 @@ from owshen_tpu.fields.fq2 import FQ2 as JFQ2
 from owshen_tpu.oracle import curve as ocurve
 from owshen_tpu.oracle import ntt as ontt
 from owshen_tpu.oracle.field import P_FR
+from owshen_tpu_torch.curves import bn254
+from owshen_tpu_torch.groth16 import groth16
+from owshen_tpu_torch.groth16.r1cs import Builder
+from owshen_tpu_torch.ops.msm_fixed import FixedMsm, FixedMsmGroup
 
 Q = ocurve.FQ1.p
 R_MONT = (1 << 256) % Q
@@ -249,3 +253,30 @@ def host_h(builder, dom):
         evals.append(ontt.ntt([c * t % p for c, t in zip(coeffs, pows)]))
     h_s = [(a * b - c) * zinv % p for a, b, c in zip(*evals)]
     return [c * pow(gi, i, p) % p for i, c in enumerate(ontt.intt(h_s))]
+
+
+def tiny_circuit():
+    """x·y = 12 with x = 3, y = 4: a one-constraint circuit whose key the
+    port's setup makes in about a second on the twins."""
+    b = Builder()
+    out = b.pub(12)
+    b.enforce_eq(b.mul(b.priv(3), b.priv(4)), out)
+    return b
+
+
+def restore_host_tables(pk):
+    """Give a port key the fixed tables `host_table` computes, so that its
+    first fixed-engine prove skips the table build (~40 s on the twins)."""
+    n = groth16._table_n(pk)
+
+    def host(pts, decode):
+        got = decode(pts)
+        return list(got) + [None] * (n - len(got))
+
+    g1_pts = [p for name in ("a_g1", "b_g1", "k_g1", "h_g1")
+              for p in host(getattr(pk, name), bn254.g1_decode)]
+    rows, widths, shapes = host_table("g1", g1_pts)
+    g1 = FixedMsmGroup.from_rows(bn254.G1, rows, (n, 4, widths, shapes))
+    rows, widths, shapes = host_table("g2", host(pk.b_g2, bn254.g2_decode))
+    b2 = FixedMsm(bn254.G2, None, _rows=rows, _meta=(n, 1, widths, shapes))
+    groth16.restore_fixed_tables(pk, g1, b2)

@@ -12,15 +12,12 @@ import time
 
 import pytest
 
-from host_msm import host_table
+from host_msm import restore_host_tables, tiny_circuit
 from owshen_tpu_torch import kernels
 from owshen_tpu_torch.circuits import pool as circuits
-from owshen_tpu_torch.curves import bn254
 from owshen_tpu_torch.fields.field import FR
 from owshen_tpu_torch.groth16 import groth16
-from owshen_tpu_torch.groth16.r1cs import Builder
 from owshen_tpu_torch.kernels import field_ops
-from owshen_tpu_torch.ops.msm_fixed import FixedMsm, FixedMsmGroup
 from owshen_tpu_torch.protocol.pool import PrivacyPool
 from owshen_tpu_torch.runtime import metrics as metrics_mod
 from owshen_tpu_torch.runtime.metrics import MetricsRegistry, metrics
@@ -113,29 +110,6 @@ def test_launch_host_time_is_counted_and_reported(monkeypatch):
     assert after["total_s"] - before["total_s"] >= 5e-6
     kernels.reset_launches()
     assert kernels.launch_host_ns()["mont_mul"] == 0 == fn.launches
-
-
-def tiny_circuit():
-    b = Builder()
-    out = b.pub(12)
-    b.enforce_eq(b.mul(b.priv(3), b.priv(4)), out)
-    return b
-
-
-def restore_host_tables(pk):
-    n = groth16._table_n(pk)
-
-    def host(pts, decode):
-        got = decode(pts)
-        return list(got) + [None] * (n - len(got))
-
-    g1_pts = [p for name in ("a_g1", "b_g1", "k_g1", "h_g1")
-              for p in host(getattr(pk, name), bn254.g1_decode)]
-    rows, widths, shapes = host_table("g1", g1_pts)
-    g1 = FixedMsmGroup.from_rows(bn254.G1, rows, (n, 4, widths, shapes))
-    rows, widths, shapes = host_table("g2", host(pk.b_g2, bn254.g2_decode))
-    b2 = FixedMsm(bn254.G2, None, _rows=rows, _meta=(n, 1, widths, shapes))
-    groth16.restore_fixed_tables(pk, g1, b2)
 
 
 def test_withdraw_proof_span_tree(monkeypatch):
